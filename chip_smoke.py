@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Proof on an NVIDIA GPU that the port's integer AlexNet path runs.
+"""Proof on an NVIDIA GPU that the port's integer AlexNet and VGG16 paths run.
 
     python3 chip_smoke.py
 
@@ -14,14 +14,27 @@ Phases, each fatal on failure:
    the limb GEMM's three int8 passes through ``torch._int_mm`` as a
    yardstick (no single PyTorch call computes the convs' quantized limb
    arithmetic);
-4. serve full-width AlexNet under ``kom_int14`` through ``CNNServeEngine``
-   (buckets 1/4/16): warm up, then 32 requests; every request must
-   complete, the launch counters must show 1 implicit-conv, 3 Winograd and
-   4 limb-GEMM launches per forward, the logits must equal a forward
-   through the plain versions on the card bit for bit, and a reduced
-   AlexNet forward on the card must equal the plain version on the CPU
-   (which the CPU tests hold against the JAX reference) bit for bit;
-5. print a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+4. the same for the implicit kernel's pooled and handoff variants at every
+   full-width VGG16 producer and consumer shape (batch 8) and at AlexNet's
+   conv2 (pooled) and conv3 (handoff) (batch 16), both policies;
+5. serve full-width AlexNet under ``kom_int14`` through ``CNNServeEngine``
+   on its default (heuristic) plan (buckets 1/4/16): warm up, then 32
+   requests; the launch counters, reset just before, must show 1
+   implicit-conv, 3 Winograd and 4 limb-GEMM launches per forward, the
+   logits must equal a forward through the plain versions on the card bit
+   for bit, and a reduced AlexNet forward on the card must equal the plain
+   version on the CPU (which the CPU tests hold against the JAX reference)
+   bit for bit;
+6. serve full-width VGG16 under ``kom_int14`` through the fused plan of
+   ``explore(cfg, model_only=True, requant=True)`` (buckets 1/4/8, 16
+   requests): the plan must hold ``pool`` and ``pool_quant`` entries, the
+   counters, reset just before, must show per forward 4 limb-GEMM, 5
+   pooled, 4 handoff and 3 plain implicit-conv launches, the logits must
+   equal the plain-version forward on the card bit for bit, and a reduced
+   VGG16 forward under its fused plan on the card must equal the CPU plain
+   versions bit for bit;
+7. print the card line, a ``kernels`` JSON line and, last,
+   ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 ``repro_torch`` package beside it.
@@ -39,18 +52,32 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 BATCH = 16
+VGG_BATCH = 8
 POLICIES = ("kom_int14", "schoolbook_int16")
+#: The JSON line's kernels: each launch counter of the build's wrappers.
+KERNELS = ("kom_matmul", "implicit_conv", "implicit_conv_pool",
+           "implicit_conv_handoff", "winograd")
 #: Where each ported kernel came from (the Pallas kernel's definition).
 REPLACES = {
     "kom_matmul": "src/repro/kernels/kom_matmul/kom_matmul.py:27",
     "implicit_conv": "src/repro/kernels/conv2d/implicit_gemm.py:131",
+    "implicit_conv_pool": "src/repro/kernels/conv2d/implicit_gemm.py:131",
+    "implicit_conv_handoff": "src/repro/kernels/conv2d/implicit_gemm.py:131",
     "winograd": "src/repro/kernels/conv2d/winograd.py:416",
 }
 SOURCES = {
     "kom_matmul": "repro_torch/csrc/kom_matmul.cu",
     "implicit_conv": "repro_torch/csrc/implicit_conv.cu",
+    "implicit_conv_pool": "repro_torch/csrc/implicit_conv.cu",
+    "implicit_conv_handoff": "repro_torch/csrc/implicit_conv.cu",
     "winograd": "repro_torch/csrc/winograd.cu",
 }
+#: Full-width VGG16 (h, cin, cout) of each pool-followed conv (pooled
+#: variant) and each conv fed by a pool_quant handoff (handoff variant).
+VGG16_POOLED = ((224, 64, 64), (112, 128, 128), (56, 256, 256),
+                (28, 512, 512), (14, 512, 512))
+VGG16_HANDOFF = ((112, 64, 128), (56, 128, 256), (28, 256, 512),
+                 (14, 512, 512))
 
 
 def log(msg: str) -> None:
@@ -191,6 +218,47 @@ def int_mm_passes_ms(torch, a16, b16, variant, bb) -> float | None:
         return None
 
 
+def compare_call(torch, build, policy, name, label, run, ops, nbytes,
+                 lib_ms=None) -> tuple:
+    """Kernel vs plain version on the same inputs: exact, then timed.
+    Returns (max_abs_err, kernel ms, plain ms)."""
+    got = run()
+    with build.plain_versions():
+        want = run()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    nan = bool(torch.isnan(got).any() or torch.isnan(want).any())
+    same = torch.equal(got, want)
+    ms = cuda_ms(run, iters=10)
+    with build.plain_versions():
+        plain_ms = cuda_ms(run, iters=3, warmup=1)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    log(f"[compare] {policy:16s} {name:21s} {label:7s} "
+        f"shape={tuple(got.shape)} max_abs_err={err} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
+        f"bound_ms={b_ms:.5f} ({b_by})")
+    if nan or not same or err != 0.0:
+        raise SystemExit(f"{name}/{label}/{policy}: kernel != plain "
+                         f"(max_abs_err={err}, nan={nan})")
+    return err, ms, plain_ms
+
+
+def add_summary(summary, name, err, ms, plain_ms, ops, nbytes, lib_ms,
+                has_library):
+    s = summary.setdefault(name, {
+        "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "library_ms": 0.0 if has_library else None,
+        "max_abs_err": 0.0, "ops": 0.0, "bytes": 0.0})
+    s["ms"] += ms
+    s["plain_ms"] += plain_ms
+    s["ops"] += ops
+    s["bytes"] += nbytes
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    if s["library_ms"] is not None:
+        s["library_ms"] = None if lib_ms is None else s["library_ms"] + lib_ms
+
+
 def phase_compare(torch) -> dict:
     from repro_torch.core.substrate import INT_POLICY_SPECS
     from repro_torch.kernels import build
@@ -201,42 +269,15 @@ def phase_compare(torch) -> dict:
         variant, bb = INT_POLICY_SPECS[policy]
         for name, label, run, ops, nbytes, args in alexnet_calls(
                 torch, policy, gen, torch.device("cuda")):
-            got = run()
-            with build.plain_versions():
-                want = run()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            nan = bool(torch.isnan(got).any() or torch.isnan(want).any())
-            same = torch.equal(got, want)
-            ms = cuda_ms(run, iters=10)
-            with build.plain_versions():
-                plain_ms = cuda_ms(run, iters=3, warmup=1)
             lib_ms = None
             if name == "kom_matmul":
                 lib_ms = int_mm_passes_ms(torch, args[0], args[1], variant,
                                           bb)
-            b_ms, b_by = bound_ms(ops, nbytes)
-            log(f"[compare] {policy:16s} {name:13s} {label:5s} "
-                f"shape={tuple(got.shape)} max_abs_err={err} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-                f"bound_ms={b_ms:.5f} ({b_by})")
-            if nan or not same or err != 0.0:
-                raise SystemExit(f"{name}/{label}/{policy}: kernel != plain "
-                                 f"(max_abs_err={err}, nan={nan})")
+            err, ms, plain_ms = compare_call(torch, build, policy, name,
+                                             label, run, ops, nbytes, lib_ms)
             if policy == "kom_int14":
-                s = summary.setdefault(name, {
-                    "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                    "library_ms": 0.0 if name == "kom_matmul" else None,
-                    "max_abs_err": 0.0, "ops": 0.0, "bytes": 0.0})
-                s["ms"] += ms
-                s["plain_ms"] += plain_ms
-                s["ops"] += ops
-                s["bytes"] += nbytes
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                if s["library_ms"] is not None:
-                    s["library_ms"] = None if lib_ms is None \
-                        else s["library_ms"] + lib_ms
+                add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
+                            lib_ms, name == "kom_matmul")
     log("[compare] the implicit and Winograd convs have no single PyTorch "
         "call computing the same quantized limb arithmetic: library_ms null")
     for s in summary.values():
@@ -245,7 +286,106 @@ def phase_compare(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: serve full-width AlexNet through the kernels.
+# Phase 4: the pooled and handoff variants, VGG16 and AlexNet shapes.
+# ---------------------------------------------------------------------------
+
+def fused_calls(torch, policy: str, gen, dev) -> list:
+    """One (kernel, label, run, ops, bytes) per pooled / handoff call:
+    VGG16's producers and consumers at batch 8 (one forward at the largest
+    serving bucket), AlexNet conv2 (pooled) and conv3 (handoff) at batch
+    16.  Inputs are made the way the serving path makes them: ReLU'd
+    activations, the layer's own activation scales, and handoff inputs
+    from ``handoff_quantize``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.substrate import INT_POLICY_SPECS, kom_qmax
+    from repro_torch.kernels.conv2d.implicit_gemm import (
+        conv2d_implicit_handoff_raw, conv2d_implicit_raw)
+    from repro_torch.kernels.conv2d.ops import handoff_quantize, patch_scales
+    from repro_torch.kernels.conv2d.winograd import (
+        channel_absmax, tile_scales_from_cmax, tile_scales_upsampled)
+
+    variant, bb = INT_POLICY_SPECS[policy]
+    passes = 3 if variant == "karatsuba" else 4
+    qmax = kom_qmax(bb)
+
+    def ints(shape):
+        return torch.randint(-qmax, qmax + 1, shape, generator=gen,
+                             dtype=torch.int32).to(torch.int16).to(dev)
+
+    def pos(shape):
+        return (torch.rand(shape, generator=gen) * 1e-3 + 1e-4).to(dev)
+
+    def act(shape):
+        return torch.relu(torch.randn(shape, generator=gen)).to(dev)
+
+    def pooled(label, n, h, k, cin, cout):
+        x, wv = act((n, h, h, cin)), ints((k, k, cin, cout))
+        p = k // 2
+        cmax = F.pad(channel_absmax(x), (p, p, p, p))
+        if k == 3:   # the shared tile-scale plan of 3x3/s1 layers
+            asc = tile_scales_upsampled(
+                tile_scales_from_cmax(cmax, qmax, -(-h // 2), -(-h // 2)),
+                h, h)
+        else:
+            asc = patch_scales(cmax, k, k, 1, qmax)
+        asc = asc.contiguous()
+        ws, bias = pos((cout,)), torch.randn((cout,), generator=gen).to(dev)
+        run = (lambda: conv2d_implicit_raw(
+            x, wv, asc, ws, bias, stride=1, pads=(p, p), out_hw=(h, h),
+            span_c=cin, variant=variant, base_bits=bb, pool=(2, 2)))
+        ops = 2.0 * n * h * h * k * k * cin * cout * passes
+        nbytes = 4 * x.numel() + 2 * wv.numel() + 4 * asc.numel() \
+            + 8 * cout + 4 * n * (h // 2) ** 2 * cout
+        return ("implicit_conv_pool", label, run, ops, nbytes)
+
+    def handoff(label, n, h, cin, cout):
+        qa = handoff_quantize(act((n, h, h, cin)), base_bits=bb)
+        wv = ints((3, 3, cin, cout))
+        ws, bias = pos((cout,)), torch.randn((cout,), generator=gen).to(dev)
+        run = (lambda: conv2d_implicit_handoff_raw(
+            qa.values, qa.scale, wv, ws, bias, bk=cin, variant=variant,
+            base_bits=bb))
+        ops = 2.0 * n * h * h * 9 * cin * cout * passes
+        nbytes = 2 * qa.values.numel() + 4 * qa.scale.numel() \
+            + 2 * wv.numel() + 8 * cout + 4 * n * h * h * cout
+        return ("implicit_conv_handoff", label, run, ops, nbytes)
+
+    calls = [pooled(f"v{h}", VGG_BATCH, h, 3, cin, cout)
+             for h, cin, cout in VGG16_POOLED]
+    calls += [handoff(f"v{h}", VGG_BATCH, h, cin, cout)
+              for h, cin, cout in VGG16_HANDOFF]
+    calls.append(pooled("a-conv2", BATCH, 27, 5, 96, 256))
+    calls.append(handoff("a-conv3", BATCH, 13, 256, 384))
+    return calls
+
+
+def phase_compare_fused(torch) -> dict:
+    """Phase 4; the summary sums one VGG16 forward's calls (kom_int14)."""
+    from repro_torch.kernels import build
+
+    gen = torch.Generator().manual_seed(2)
+    summary = {}
+    for policy in POLICIES:
+        for name, label, run, ops, nbytes in fused_calls(
+                torch, policy, gen, torch.device("cuda")):
+            err, ms, plain_ms = compare_call(torch, build, policy, name,
+                                             label, run, ops, nbytes)
+            if policy == "kom_int14" and label.startswith("v"):
+                add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
+                            None, False)
+            elif name in summary:
+                s = summary[name]
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+    log("[compare] the pooled and handoff variants have no single PyTorch "
+        "call computing the same quantized limb arithmetic: library_ms null")
+    for s in summary.values():
+        s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"])
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serve full-width AlexNet through the kernels.
 # ---------------------------------------------------------------------------
 
 def random_biases(torch, params: list, gen) -> list:
@@ -345,6 +485,110 @@ def phase_serve(torch, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: serve full-width VGG16 through the fused plan.
+# ---------------------------------------------------------------------------
+
+def phase_serve_vgg16(torch, card: str) -> dict:
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.planner import explore
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.models.cnn import (cnn_forward, cnn_init,
+                                        cnn_quantize_params)
+    from repro_torch.serving.cnn_engine import (CNNServeEngine, ImageRequest,
+                                                params_to)
+
+    cfg = get_config("vgg16", policy=MatmulPolicy.KOM_INT14)
+    plan = explore(cfg, model_only=True, requant=True, backend="cuda")
+    fusions = [e.fusion for e in plan.entries]
+    log("[vgg16] plan: " + ", ".join(f"{e.key} {e.path}/{e.fusion}"
+                                     for e in plan.entries))
+    if "pool" not in fusions or "pool_quant" not in fusions:
+        raise SystemExit(f"the requant plan fused nothing: {fusions}")
+    gen = torch.Generator().manual_seed(0)
+    params = random_biases(torch, cnn_init(cfg, gen, device="cuda"), gen)
+    eng = CNNServeEngine(cfg, params, buckets=(1, 4, 8), device="cuda",
+                         plan=plan)
+    t0 = time.perf_counter()
+    eng.warmup()
+    log(f"[vgg16] warmup {time.perf_counter() - t0:.2f}s "
+        f"(buckets {eng.buckets})")
+    rng = np.random.default_rng(0)
+    n_req = 16
+    imgs = rng.standard_normal((n_req, 224, 224, 3)).astype(np.float32)
+    steps0 = eng.batcher.steps
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for uid in range(n_req):
+        eng.submit(ImageRequest(uid=uid, image=imgs[uid]))
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts()
+    forwards = eng.batcher.steps - steps0
+    if sorted(done) != list(range(n_req)):
+        raise SystemExit(f"served {len(done)} of {n_req} requests")
+    want = {"kom_matmul": 4 * forwards, "implicit_conv_pool": 5 * forwards,
+            "implicit_conv_handoff": 4 * forwards,
+            "implicit_conv": 3 * forwards}
+    log(f"[vgg16] {forwards} forwards, launches {launches}, "
+        f"expected {want}")
+    if launches != want:
+        raise SystemExit(f"launch counts {launches} != {want}")
+    logits = np.stack([done[u].logits for u in range(n_req)])
+    if logits.shape != (n_req, 1000) or not np.isfinite(logits).all():
+        raise SystemExit(f"bad logits: shape {logits.shape}, "
+                         f"finite {np.isfinite(logits).all()}")
+    x_all = torch.from_numpy(imgs).cuda()
+    with build.plain_versions():
+        plain = eng.forward(x_all).cpu().numpy()
+    if not np.array_equal(plain, logits):
+        raise SystemExit(f"VGG16 engine logits != plain forward on the card "
+                         f"(max diff {np.abs(plain - logits).max()})")
+    log("[vgg16] engine logits == plain-version forward on the card, "
+        "bitwise")
+    fp32 = cfg.replace(policy=MatmulPolicy.FP32)
+    with torch.inference_mode():
+        ref = cnn_forward(params, fp32, x_all[:2]).cpu().numpy()
+    rel = float(np.abs(logits[:2] - ref).max() / np.abs(ref).max())
+    top1 = float(np.mean(logits[:2].argmax(1) == ref.argmax(1)))
+    log(f"[vgg16] kom_int14 (fused plan) vs fp32 logits: max rel err "
+        f"{rel:.3e}, top-1 agreement {top1}")
+    if not rel < 0.1:
+        raise SystemExit(f"kom_int14 VGG16 logits far from fp32 ({rel})")
+    # Small input: the fused plan's kernels on the card == CPU plain versions.
+    rcfg = reduced(cfg)
+    rplan = explore(rcfg, model_only=True, requant=True, backend="cpu")
+    gen = torch.Generator().manual_seed(1)
+    rp = cnn_quantize_params(
+        random_biases(torch, cnn_init(rcfg, gen, device="cpu"), gen), rcfg)
+    xs = torch.from_numpy(rng.standard_normal(
+        (2, rcfg.img_size, rcfg.img_size, 3)).astype(np.float32))
+    with torch.inference_mode():
+        cpu_out = cnn_forward(rp, rcfg, xs, plan=rplan).numpy()
+        gpu_out = cnn_forward(
+            params_to(rp, "cuda"), rcfg, xs.cuda(),
+            plan=dataclasses.replace(rplan, backend="cuda")).cpu().numpy()
+    if not np.array_equal(cpu_out, gpu_out):
+        raise SystemExit("reduced VGG16 (fused plan): card kernels != CPU "
+                         "plain versions (max diff "
+                         f"{np.abs(cpu_out - gpu_out).max()})")
+    log("[vgg16] reduced VGG16, fused plan: kernels on the card == plain "
+        "versions on the CPU, bitwise")
+    phase_profile(torch, eng, imgs[:VGG_BATCH])
+    s = eng.stats()
+    log(f"[vgg16] vgg16/kom_int14 on {card}: {s['images_done']} images, "
+        f"{s['images_per_s']:.1f} img/s batched, {n_req / wall:.1f} img/s "
+        f"wall, p50 latency {1e3 * s['latency_p50_s']:.2f} ms, "
+        f"p95 latency {1e3 * s['latency_p95_s']:.2f} ms, "
+        f"buckets {s['bucket_counts']}")
+    return launches
+
+
 def phase_profile(torch, eng, batch) -> None:
     """Where one 16-image serving step (host batch in, host logits out)
     spends its time: its wall clock, and from ``torch.profiler`` the device
@@ -418,9 +662,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     summary = phase_compare(torch)
-    launches = phase_serve(torch, card)
+    summary.update(phase_compare_fused(torch))
+    launches = {}
+    for path in (phase_serve, phase_serve_vgg16):
+        for name, n in path(torch, card).items():
+            launches[name] = launches.get(name, 0) + n
     kernels = []
-    for name in ("kom_matmul", "implicit_conv", "winograd"):
+    for name in KERNELS:
         s = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

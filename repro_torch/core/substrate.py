@@ -14,7 +14,8 @@ for bit:
   device, the strategy the reference's own lax mirrors use.
 * **Quantization state** (:class:`QTensor`, :class:`QWeight`,
   :func:`quantize_symmetric`, :func:`quantize_weight`).
-* **Conv dispatch** (:func:`select_conv_path`, :func:`conv2d`).
+* **Conv dispatch** (:func:`select_conv_path`, :func:`conv2d`) and the
+  pre-quantized handoff activation (:class:`QActivation`).
 
 Rounding rules (pinned against ``jax.jit(cnn_forward)`` by the tests):
 
@@ -347,6 +348,35 @@ def dequantize_weight(w: QWeight) -> torch.Tensor:
     return w.values.to(torch.float32) * w.scale
 
 
+@dataclasses.dataclass(frozen=True)
+class QActivation:
+    """A pre-quantized activation handed between fused conv layers.
+
+    Produced by the ``pool_quant`` epilogue fusion: the conv that FEEDS a
+    3x3/s1/SAME integer layer quantizes its pooled output once per pixel
+    with the consumer's tile-granular scale plan, so the consumer reads
+    int16 values and a small scale grid instead of f32.
+
+    ``values`` is the consumer's PADDED input, (n, h+2, w+2, c) int16,
+    where pixel (py, px) used the 4x4/s2 cell scale
+    ``scale[n, min(py//2, th-1), min(px//2, tw-1)]``; ``scale`` is that
+    (n, th, tw) f32 grid of powers of two, th = ceil(h/2), tw = ceil(w/2).
+    ``h``/``w`` are the true unpadded spatial dims, so :attr:`shape` is
+    the logical (n, h, w, c) and plan lookups see the logical activation.
+    Padding pixels quantize to exactly 0.
+    """
+
+    values: torch.Tensor
+    scale: torch.Tensor
+    base_bits: int = 7
+    h: int = 0
+    w: int = 0
+
+    @property
+    def shape(self):
+        return (self.values.shape[0], self.h, self.w, self.values.shape[3])
+
+
 def dequant_epilogue(raw: torch.Tensor, t: torch.Tensor | None,
                      bias: torch.Tensor | None) -> torch.Tensor:
     """The plain versions' dequant epilogue: ``raw*t`` or ``fma(raw, t, b)``.
@@ -469,28 +499,50 @@ def select_conv_path(*, kh: int, kw: int, stride: int, cin: int, cout: int,
     return "im2col"
 
 
-def conv2d(x: torch.Tensor, w, *, stride: int = 1, padding: str = "SAME",
+def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
            policy="native_bf16", path: str = "auto", block=None,
            bias: torch.Tensor | None = None,
-           activation: Optional[str] = None) -> torch.Tensor:
+           activation: Optional[str] = None, pool: tuple | None = None,
+           quantize_next: int | None = None):
     """NHWC conv behind one policy-driven entry point, epilogue fused.
 
     ``w`` is an HWIO float tensor or a cached :class:`QWeight`.  ``path``:
     ``"auto"`` (the planner's heuristic), ``"im2col"``, ``"implicit"`` or
     ``"winograd"``.  ``block`` is the engine's tile schedule from a plan;
     the port's kernels pick their own tiles and read only the implicit
-    engine's Cin chunk (it sets the recombine groups).
+    engine's Cin chunk (it sets the recombine groups and the handoff
+    consumer's f32 order).
+
+    The implicit engine's epilogue fusions: ``pool=(window, pstride[,
+    ppad])`` folds the FOLLOWING maxpool into the conv (the output is the
+    pooled tensor); ``quantize_next=b`` hands the pooled output to the
+    next 3x3/s1/SAME integer layer as a :class:`QActivation`.  A
+    QActivation ``x`` is the consumer side and runs on the implicit engine
+    only.  Any other engine raises on either.
     """
     from repro_torch.kernels.conv2d import conv2d_implicit, conv2d_winograd
 
     from .systolic import conv2d_im2col
 
     kh, kw, cin, cout = w.shape
+    if isinstance(x, QActivation):
+        if path not in ("auto", "implicit"):
+            raise ValueError(
+                f"path={path!r} cannot consume a QActivation: pre-quantized "
+                "handoff activations are an implicit-engine contract")
+        path = "implicit"
     if path == "auto":
         from .planner import heuristic_path
         path = heuristic_path(kh=kh, kw=kw, stride=stride, cin=cin,
                               cout=cout, policy=policy, padding=padding,
                               cached_weight=isinstance(w, QWeight))
+    if pool is not None or quantize_next is not None:
+        want = "pool_quant" if quantize_next is not None else "pool"
+        if not path_supports_fusion(path, want):
+            raise ValueError(
+                f"path={path!r} does not implement the {want!r} epilogue "
+                "fusion; only the implicit engine pools/quantizes in its "
+                "epilogue")
     if path == "im2col":
         return conv2d_im2col(x, w, stride=stride, padding=padding,
                              policy=policy, bias=bias, activation=activation)
@@ -508,7 +560,8 @@ def conv2d(x: torch.Tensor, w, *, stride: int = 1, padding: str = "SAME",
         return conv2d_implicit(x, w, stride=stride, padding=padding,
                                block=block, variant=variant,
                                base_bits=base_bits, bias=bias,
-                               activation=activation)
+                               activation=activation, pool=pool,
+                               quantize_next=quantize_next)
     if path == "winograd":
         return conv2d_winograd(x, w, stride=stride, padding=padding,
                                variant=variant, base_bits=base_bits,

@@ -74,14 +74,25 @@ def conv2d_im2col(x: torch.Tensor, w, *, stride: int = 1,
 
 def pool2d(x: torch.Tensor, *, window: int, stride: int, kind: str = "max",
            padding: str = "VALID") -> torch.Tensor:
-    """NHWC pooling (VALID windows)."""
-    if padding != "VALID":
-        raise NotImplementedError("pool2d: VALID pooling only in the port")
+    """NHWC pooling over VALID or SAME windows.
+
+    SAME pads like ``lax.reduce_window``: ceil(h/stride) outputs, the
+    padding split low = total//2, high = the rest, with -inf (max) or 0
+    (avg; the divisor stays window*window, as in the reference).
+    """
+    if kind not in ("max", "avg"):
+        raise ValueError(kind)
     xc = x.to(torch.float32).permute(0, 3, 1, 2)
+    if padding == "SAME":
+        pads = []
+        for size in (xc.shape[3], xc.shape[2]):   # F.pad order: W, then H
+            total = max((-(-size // stride) - 1) * stride + window - size, 0)
+            pads += [total // 2, total - total // 2]
+        xc = F.pad(xc, pads, value=-float("inf") if kind == "max" else 0.0)
+    elif padding != "VALID":
+        raise ValueError(padding)
     if kind == "max":
         out = F.max_pool2d(xc, window, stride)
-    elif kind == "avg":
-        out = F.avg_pool2d(xc, window, stride)
     else:
-        raise ValueError(kind)
+        out = F.avg_pool2d(xc, window, stride)
     return out.permute(0, 2, 3, 1).contiguous()

@@ -1,3 +1,3 @@
-from .ops import conv2d_implicit, conv2d_winograd
+from .ops import conv2d_implicit, conv2d_winograd, handoff_quantize
 
-__all__ = ["conv2d_implicit", "conv2d_winograd"]
+__all__ = ["conv2d_implicit", "conv2d_winograd", "handoff_quantize"]

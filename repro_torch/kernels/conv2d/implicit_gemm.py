@@ -1,16 +1,29 @@
-"""Implicit-GEMM integer conv: schedules, CUDA kernel wrapper, plain version.
+"""Implicit-GEMM integer conv: schedules, CUDA kernel wrapper, plain versions.
 
 Replaces the TPU kernel ``repro/kernels/conv2d/implicit_gemm.py:
-_implicit_kernel`` (``conv2d_implicit_raw``) in its integer variants with
-the ``bias_relu`` epilogue.  The GEMM is M = output pixels, K = kh*kw*cin,
-N = cout, with no patch matrix in device memory: activations are quantized
-per PATCH as they are gathered, the three int32 limb partials fold into an
-f32 group sum at the recombine-group boundaries (:func:`recombine_schedule`,
-:func:`group_spans`), and the epilogue is ``fma(sum, s_patch * s_ch, b)``.
-The CUDA source is ``repro_torch/csrc/implicit_conv.cu``.
+_implicit_kernel`` (``conv2d_implicit_raw``) in its integer variants.  The
+GEMM is M = output pixels, K = kh*kw*cin, N = cout, with no patch matrix in
+device memory.  Three variants share one CUDA source
+(``repro_torch/csrc/implicit_conv.cu``), each with its plain PyTorch
+version here:
 
-The pooled epilogue, the int16 handoff input and the float variants of the
-TPU kernel are not ported yet (ROADMAP.md).
+* **bias_relu** (:func:`conv2d_implicit_raw_plain`): activations are
+  quantized per PATCH as they are gathered, the three int32 limb partials
+  fold into an f32 group sum at the recombine-group boundaries
+  (:func:`recombine_schedule`, :func:`group_spans`), and the epilogue is
+  ``fma(sum, s_patch * s_ch, b)``.
+* **pool** (``pool=(2, 2)``): the same core, then the 2x2/s2 VALID maxpool
+  of the dequantized tile before write-back: ``max(fl(sum * t)) + b`` --
+  the max sits between the multiply and the bias add, so nothing is
+  contracted.  Other windows pool after the core in the ops wrapper.
+* **handoff** (:func:`conv2d_implicit_handoff_plain`): the input is a
+  ``pool_quant`` producer's padded int16 pixels plus its power-of-two cell
+  scale grid; nothing is quantized, and each (Cin chunk of ``bk``, tap)
+  contributes one exact int32 limb dot, recombined at once, times the
+  tap's cell scale (exact), added into the f32 sum -- chunk outer, taps
+  inner; the epilogue is ``fma(sum, s_ch, b)``.
+
+The float variants of the TPU kernel are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,8 +42,12 @@ from .conv2d import int_accum_bound, limb_term_bound
 INT_VARIANTS = ("karatsuba", "schoolbook")
 
 NAME = "implicit_conv"
-_ARGTYPES = {"implicit_conv_launch": [ctypes.c_void_p] * 6
-             + [ctypes.c_int] * 16 + [ctypes.c_void_p]}
+#: Launch-counter names of the three variants (one library).
+POOL_NAME, HANDOFF_NAME = "implicit_conv_pool", "implicit_conv_handoff"
+#: Pool windows (window, stride) the kernel fuses; others pool after it.
+KERNEL_POOLS = ((2, 2),)
+_ARGTYPES = {"implicit_conv_launch": [ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 20 + [ctypes.c_void_p]}
 
 
 def max_cin_block(kh: int, kw: int, *, variant: str, base_bits: int) -> int:
@@ -88,18 +105,36 @@ def _check(x, w_vals, ascale, wscale, bias, stride, out_hw, span_c,
         raise ValueError(f"bad stride {stride}")
 
 
+def _check_pool(pool):
+    if pool is not None and tuple(pool) not in KERNEL_POOLS:
+        raise ValueError(f"the kernel fuses pools {KERNEL_POOLS} only, got "
+                         f"{tuple(pool)}: pool after the core instead")
+
+
+def _pool_epilogue(acc, t, bias):
+    """``max(fl(acc * t)) + b`` over the 2x2/s2 VALID windows."""
+    out = F.max_pool2d((acc * t).permute(0, 3, 1, 2), 2, 2)
+    out = out.permute(0, 2, 3, 1)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.contiguous()
+
+
 def conv2d_implicit_raw_plain(x, w_vals, ascale, wscale, bias=None, *,
                               stride: int, pads: tuple, out_hw: tuple,
-                              span_c: int, variant: str, base_bits: int
-                              ) -> torch.Tensor:
+                              span_c: int, variant: str, base_bits: int,
+                              pool=None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch, on any device.
 
     Per-tap strided slices of the zero-padded input, per-patch quantization,
     exact int32 limb partials per recombine group, one f32 recombine per
-    group, groups summed in order, then ``fma(sum, s_patch * s_ch, b)``.
+    group, groups summed in order, then ``fma(sum, s_patch * s_ch, b)`` --
+    or, with ``pool=(2, 2)``, ``max(fl(sum * t)) + b`` over the VALID pool
+    windows.
     """
     _check(x, w_vals, ascale, wscale, bias, stride, out_hw, span_c,
            variant, base_bits)
+    _check_pool(pool)
     n, h, w, cin = x.shape
     kh, kw, _, cout = w_vals.shape
     ho, wo = out_hw
@@ -129,46 +164,173 @@ def conv2d_implicit_raw_plain(x, w_vals, ascale, wscale, bias=None, *,
         g = limb_recombine(p_hh, p_mid, p_ll, base_bits=base_bits)
         acc = g if acc is None else acc + g
     t = s4 * wscale.to(torch.float32)
+    if pool is not None:
+        return _pool_epilogue(acc, t, bias)
     return dequant_epilogue(acc, t, None if bias is None
                             else bias.to(torch.float32))
 
 
+def _check_handoff(q, grid, w_vals, wscale, bias, bk, variant, base_bits):
+    if variant not in INT_VARIANTS:
+        raise ValueError(f"integer variants only, got {variant!r}")
+    n, hp, wp, cin = q.shape
+    kh, kw, wcin, cout = w_vals.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError("the handoff input feeds 3x3/s1/SAME convs only")
+    if wcin != cin:
+        raise ValueError(f"weight cin {wcin} != input cin {cin}")
+    th, tw = -(-(hp - 2) // 2), -(-(wp - 2) // 2)
+    if tuple(grid.shape) != (n, th, tw):
+        raise ValueError(f"scale grid must be {(n, th, tw)}, got "
+                         f"{tuple(grid.shape)}")
+    if tuple(wscale.shape) != (cout,) or (
+            bias is not None and tuple(bias.shape) != (cout,)):
+        raise ValueError("wscale and bias must have shape (cout,)")
+    if bk < 1 or limb_term_bound(variant, base_bits) * kh * kw * min(
+            bk, cin) >= 2**31:
+        raise ValueError(f"a handoff K step of {bk} channels wraps int32")
+
+
+def cell_scales(grid: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Upsample the (n, th, tw) cell scale grid to per-PIXEL scales.
+
+    Pixel (py, px) of the padded input takes the scale of 4x4/s2 cell
+    ``(min(py//2, th-1), min(px//2, tw-1))``: every pixel lies inside its
+    cell's amax window, so quantizing with it never clips past qmax.
+    """
+    th, tw = grid.shape[1], grid.shape[2]
+    ri = torch.clamp(torch.arange(hp, device=grid.device) // 2, max=th - 1)
+    ci = torch.clamp(torch.arange(wp, device=grid.device) // 2, max=tw - 1)
+    return grid[:, ri][:, :, ci]
+
+
+def conv2d_implicit_handoff_plain(q, grid, w_vals, wscale, bias=None, *,
+                                  bk: int, variant: str, base_bits: int,
+                                  pool=None) -> torch.Tensor:
+    """The handoff variant's arithmetic in PyTorch, on any device.
+
+    ``q`` (n, h+2, w+2, cin) int16 padded pixels and ``grid`` (n, th, tw)
+    their cell scales (a :class:`~repro_torch.core.substrate.QActivation`'s
+    fields); ``w_vals`` (3, 3, cin, cout).  For each Cin chunk of ``bk``
+    and each tap in order: the exact int32 limb partials over the chunk,
+    one recombine, times the tap's cell-scale plane (powers of two: exact),
+    added into the f32 sum.  Epilogue ``fma(sum, s_ch, b)`` (the jitted
+    reference contracts it), or ``max(fl(sum * s_ch)) + b`` with
+    ``pool=(2, 2)``.
+    """
+    _check_handoff(q, grid, w_vals, wscale, bias, bk, variant, base_bits)
+    _check_pool(pool)
+    n, hp, wp, cin = q.shape
+    ho, wo = hp - 2, wp - 2
+    cs = cell_scales(grid.to(torch.float32), hp, wp)
+    acc = None
+    for c0 in range(0, cin, bk):
+        c1 = min(c0 + bk, cin)
+        for dy in range(3):
+            for dx in range(3):
+                rows = q[:, dy:dy + ho, dx:dx + wo, c0:c1]
+                hh, mid, ll = limb_partials(rows, w_vals[dy, dx, c0:c1],
+                                            variant=variant,
+                                            base_bits=base_bits)
+                rec = limb_recombine(hh, mid, ll, base_bits=base_bits)
+                g = cs[:, dy:dy + ho, dx:dx + wo, None] * rec
+                acc = g if acc is None else acc + g
+    ws = wscale.to(torch.float32)
+    if pool is not None:
+        return _pool_epilogue(acc, ws, bias)
+    return dequant_epilogue(acc, ws, None if bias is None
+                            else bias.to(torch.float32))
+
+
+def _launch(lib_args, out, name):
+    """Launch the library's kernel, check the launch, count it as ``name``."""
+    lib = build.library(NAME, _ARGTYPES)
+    code = lib.implicit_conv_launch(*lib_args)
+    build.check_launch(lib, code, name)
+    build.LAUNCHES[name] += 1
+    return out
+
+
 def conv2d_implicit_raw(x, w_vals, ascale, wscale, bias=None, *,
                         stride: int, pads: tuple, out_hw: tuple, span_c: int,
-                        variant: str, base_bits: int) -> torch.Tensor:
+                        variant: str, base_bits: int,
+                        pool=None) -> torch.Tensor:
     """Integer implicit-GEMM conv with the fused dequant(+bias) epilogue.
 
     ``x`` (n, h, w, cin) f32 UNPADDED NHWC (``pads`` = (top, left) zero
     padding; bottom/right follow from ``out_hw``); ``w_vals`` (kh, kw, cin,
     cout) integers; ``ascale`` (n, ho, wo) per-patch scales; ``wscale``
     (cout,); ``bias`` (cout,) or None; ``span_c`` channels per recombine
-    group.  Returns (n, ho, wo, cout) f32.  CUDA tensors run the kernel,
-    CPU tensors :func:`conv2d_implicit_raw_plain`.
+    group.  Returns (n, ho, wo, cout) f32.  ``pool=(2, 2)`` returns the
+    VALID-maxpooled (n, ho//2, wo//2, cout) instead, bias added after the
+    max; the conv height and width are ``out_hw`` (the kernel indexes
+    pooled pixels, so rows past the conv map are never formed and need no
+    mask).  CUDA tensors run the kernel, CPU tensors the plain version.
     """
     kw_ = dict(stride=stride, pads=pads, out_hw=out_hw, span_c=span_c,
-               variant=variant, base_bits=base_bits)
+               variant=variant, base_bits=base_bits, pool=pool)
     if not build.use_kernel(x):
         return conv2d_implicit_raw_plain(x, w_vals, ascale, wscale, bias,
                                          **kw_)
     _check(x, w_vals, ascale, wscale, bias, stride, out_hw, span_c, variant,
            base_bits)
+    _check_pool(pool)
     dev = x.device
     n, h, w, cin = x.shape
     kh, kw, _, cout = w_vals.shape
     ho, wo = out_hw
+    hp, wp = (ho // 2, wo // 2) if pool is not None else (ho, wo)
     f32 = lambda t: None if t is None else \
         t.to(device=dev, dtype=torch.float32).contiguous()
     xc, asc, wsc, bs = f32(x), f32(ascale), f32(wscale), f32(bias)
     wv = w_vals.to(device=dev, dtype=torch.int16).contiguous()
-    out = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=dev)
+    out = torch.empty((n, hp, wp, cout), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = build.library(NAME, _ARGTYPES)
-    code = lib.implicit_conv_launch(
-        xc.data_ptr(), wv.data_ptr(), asc.data_ptr(), wsc.data_ptr(),
-        build.ptr(bs), out.data_ptr(), n, h, w, cin, cout, kh, kw, stride,
-        pads[0], pads[1], ho, wo, span_c, kom_qmax(base_bits), base_bits,
-        int(variant == "karatsuba"), build.stream_ptr(xc))
-    build.check_launch(lib, code, NAME)
-    build.LAUNCHES[NAME] += 1
-    return out
+    return _launch(
+        (xc.data_ptr(), wv.data_ptr(), asc.data_ptr(), None, wsc.data_ptr(),
+         build.ptr(bs), out.data_ptr(), n, h, w, cin, cout, kh, kw, stride,
+         pads[0], pads[1], ho, wo, span_c, kom_qmax(base_bits), base_bits,
+         int(variant == "karatsuba"), int(pool is not None), 0, hp, wp,
+         build.stream_ptr(xc)),
+        out, NAME if pool is None else POOL_NAME)
+
+
+def conv2d_implicit_handoff_raw(q, grid, w_vals, wscale, bias=None, *,
+                                bk: int, variant: str, base_bits: int,
+                                pool=None) -> torch.Tensor:
+    """The handoff consumer: a 3x3/s1/SAME conv over pre-quantized pixels.
+
+    ``q`` (n, h+2, w+2, cin) int16 padded values and ``grid`` (n, th, tw)
+    f32 power-of-two cell scales (a ``QActivation``); ``bk`` the Cin chunk
+    whose per-tap recombines fix the f32 order.  Returns (n, h, w, cout)
+    f32, or the (2, 2)-pooled map with ``pool``.  The kernel reads the cell
+    scale of each tap from the small grid; the upsampled plane is never
+    formed.  CUDA tensors run the kernel, CPU tensors the plain version.
+    """
+    kw_ = dict(bk=bk, variant=variant, base_bits=base_bits, pool=pool)
+    if not build.use_kernel(q):
+        return conv2d_implicit_handoff_plain(q, grid, w_vals, wscale, bias,
+                                             **kw_)
+    _check_handoff(q, grid, w_vals, wscale, bias, bk, variant, base_bits)
+    _check_pool(pool)
+    dev = q.device
+    n, hpad, wpad, cin = q.shape
+    cout = w_vals.shape[3]
+    ho, wo = hpad - 2, wpad - 2
+    hp, wp = (ho // 2, wo // 2) if pool is not None else (ho, wo)
+    f32 = lambda t: None if t is None else \
+        t.to(device=dev, dtype=torch.float32).contiguous()
+    gr, wsc, bs = f32(grid), f32(wscale), f32(bias)
+    qv = q.to(device=dev, dtype=torch.int16).contiguous()
+    wv = w_vals.to(device=dev, dtype=torch.int16).contiguous()
+    out = torch.empty((n, hp, wp, cout), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    return _launch(
+        (qv.data_ptr(), wv.data_ptr(), None, gr.data_ptr(), wsc.data_ptr(),
+         build.ptr(bs), out.data_ptr(), n, hpad, wpad, cin, cout, 3, 3, 1,
+         0, 0, ho, wo, bk, kom_qmax(base_bits), base_bits,
+         int(variant == "karatsuba"), int(pool is not None), 1, hp, wp,
+         build.stream_ptr(qv)),
+        out, HANDOFF_NAME)

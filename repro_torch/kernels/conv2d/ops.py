@@ -1,14 +1,21 @@
 """Public integer conv wrappers: implicit GEMM and Winograd F(2x2, 3x3).
 
-The port of the integer, ``bias_relu`` halves of ``repro/kernels/conv2d/
-ops.py``: scale plans computed here in PyTorch (per-patch, or per-tile on
-Winograd-eligible layers), the core on the CUDA kernel (plain version on
-the CPU), bias inside the kernel's epilogue as ``fma(raw, t, b)`` and ReLU
-after it -- which is what the reference's jitted forward computes.
+The port of the integer halves of ``repro/kernels/conv2d/ops.py``: scale
+plans computed here in PyTorch (per-patch, or per-tile on Winograd-eligible
+layers), the core on the CUDA kernel (plain version on the CPU), bias
+inside the kernel's epilogue as ``fma(raw, t, b)`` and ReLU after it --
+which is what the reference's jitted forward computes.
+
+The implicit engine's fused dataflow: ``pool=`` folds the following
+maxpool into the kernel's epilogue (2x2/s2 VALID; other windows pool after
+the core, in the same call), ``quantize_next=`` hands the pooled output to
+the next 3x3/s1/SAME layer through :func:`handoff_quantize`, and a
+:class:`~repro_torch.core.substrate.QActivation` input runs the kernel's
+handoff variant.
 
 Tiles are the kernels' own; of a plan's ``block`` only the implicit
-engine's Cin chunk ``bk`` is read, because it sets the recombine groups on
-layers too deep for one int32 accumulation.
+engine's Cin chunk ``bk`` is read: it sets the recombine groups on layers
+too deep for one int32 accumulation, and the handoff consumer's f32 order.
 """
 from __future__ import annotations
 
@@ -16,16 +23,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.substrate import (QWeight, activation_scale, conv_pads,
+from repro_torch.core.substrate import (QActivation, QWeight,
+                                        activation_scale, conv_pads,
                                         kom_qmax, not_ported,
                                         quantize_weight)
+from repro_torch.core.systolic import pool2d
 
-from .implicit_gemm import (INT_VARIANTS, conv2d_implicit_raw, group_spans,
-                            max_cin_block, recombine_schedule)
+from .implicit_gemm import (INT_VARIANTS, KERNEL_POOLS, cell_scales,
+                            conv2d_implicit_handoff_raw, conv2d_implicit_raw,
+                            group_spans, max_cin_block, recombine_schedule)
 from .winograd import (WINOGRAD_OUTPUT_SCALE, channel_absmax,
-                       conv2d_winograd_raw, tile_scales_from_cmax,
-                       tile_scales_upsampled, winograd_accum_bound,
-                       winograd_scale_eligible, winograd_weight_planes)
+                       conv2d_winograd_raw, tile_scale_grid,
+                       tile_scales_from_cmax, tile_scales_upsampled,
+                       winograd_accum_bound, winograd_scale_eligible,
+                       winograd_weight_planes)
 
 
 def _activate(out: torch.Tensor, activation) -> torch.Tensor:
@@ -49,51 +60,131 @@ def patch_scales(cmax_p: torch.Tensor, kh: int, kw: int, stride: int,
     return activation_scale(amax, qmax)
 
 
-def conv2d_implicit(x: torch.Tensor, w, *, stride: int = 1,
-                    padding: str = "SAME", variant: str = "karatsuba",
-                    base_bits: int = 7, bias: torch.Tensor | None = None,
+def handoff_quantize(x: torch.Tensor, *, base_bits: int) -> QActivation:
+    """Quantize an activation ONCE per pixel for a 3x3/s1/SAME consumer.
+
+    The producer half of the ``pool_quant`` handoff, shared by the fused
+    epilogue and the unfused pipeline: SAME-pad for the consumer, build
+    its 4x4/s2 tile scale grid (the jitted rule ``amax * f32(1/qmax)``),
+    round each cell scale UP to a power of two (``frexp``: 2^e is the
+    smallest power of two >= the scale, and an exact power of two doubles,
+    as in the reference), then quantize each PADDED pixel with its cell's
+    scale: true division, round half to even, clip, int16.  Padding pixels
+    quantize to 0.
+    """
+    qmax = kom_qmax(base_bits)
+    n, h, w, c = x.shape
+    _, _, ((pt, pb), (pl, pr)) = conv_pads(h, w, 3, 3, 1, "SAME")
+    xp = F.pad(x.to(torch.float32), (0, 0, pl, pr, pt, pb))
+    grid = tile_scale_grid(xp, qmax, -(-h // 2), -(-w // 2))
+    _, e = torch.frexp(grid)
+    grid = torch.ldexp(torch.ones_like(grid), e)
+    cs = cell_scales(grid, xp.shape[1], xp.shape[2])
+    q = torch.clamp(torch.round(xp / cs[..., None]), -qmax, qmax)
+    return QActivation(values=q.to(torch.int16), scale=grid,
+                       base_bits=base_bits, h=h, w=w)
+
+
+def _pool_tuple(pool):
+    if pool is None:
+        return None
+    return (int(pool[0]), int(pool[1]),
+            pool[2] if len(pool) > 2 else "VALID")
+
+
+def _check_handoff_input(x: QActivation, w, stride, padding, variant):
+    if variant not in INT_VARIANTS:
+        raise ValueError("QActivation input requires an integer limb variant")
+    if not isinstance(w, QWeight):
+        raise ValueError("QActivation input requires a cached QWeight (the "
+                         "handoff is a serving-path contract)")
+    if (w.shape[0], w.shape[1], stride, padding) != (3, 3, 1, "SAME"):
+        raise ValueError(
+            "QActivation was quantized for a 3x3/s1/SAME consumer; got "
+            f"k={w.shape[0]}x{w.shape[1]} s{stride} {padding}")
+    if x.base_bits != w.base_bits:
+        raise ValueError(
+            f"handoff base_bits {x.base_bits} != weight base_bits "
+            f"{w.base_bits}: producer and consumer must share a policy")
+
+
+def conv2d_implicit(x, w, *, stride: int = 1, padding: str = "SAME",
+                    variant: str = "karatsuba", base_bits: int = 7,
+                    bias: torch.Tensor | None = None,
                     activation: str | None = None, block=None,
-                    fold_every: int | None = None) -> torch.Tensor:
+                    fold_every: int | None = None, pool=None,
+                    quantize_next: int | None = None):
     """NHWC integer conv as an implicit GEMM: no patch matrix in memory.
 
     ``w`` is a :class:`QWeight` or a float HWIO weight (quantized here with
     the same per-output-channel rule).  ``block=(bm, bc, bk)``: only ``bk``
     is read (default: the widest wrap-free chunk, capped at Cin);
     ``fold_every`` overrides the recombine schedule (tests).
+
+    ``pool=(pw, ps[, ppad])`` maxpools the dequantized output inside the
+    call -- in the kernel's epilogue for 2x2/s2 VALID, after the core for
+    any other window -- with bias and ReLU on the pooled tensor (max is
+    exact selection, so this equals pooling after them).  ``quantize_next
+    =b`` returns the (pooled) result as a :class:`QActivation` through
+    :func:`handoff_quantize`.  A QActivation ``x`` is the consumer side: a
+    3x3/s1/SAME layer under an integer variant with a cached QWeight.
     """
     if variant not in INT_VARIANTS:
         raise not_ported(f"the implicit engine's {variant!r} variant",
-                         "Queue 2 item 2: the implicit kernel's float "
+                         "Queue 2 item 2.3: the implicit kernel's float "
                          "variants")
+    handoff_in = isinstance(x, QActivation)
+    if handoff_in:
+        _check_handoff_input(x, w, stride, padding, variant)
     if not isinstance(w, QWeight):
         w = quantize_weight(w, base_bits=base_bits)
     base_bits = w.base_bits
     kh, kw, cin, _ = w.shape
     qmax = kom_qmax(base_bits)
-    x = x.to(torch.float32)
-    ho, wo, pads = conv_pads(x.shape[1], x.shape[2], kh, kw, stride,
-                             padding)
     if block is not None:
         bk = block[2]
     else:
         bk = max_cin_block(kh, kw, variant=variant, base_bits=base_bits)
     bk = min(bk, cin)
-    if fold_every is None:
-        fold_every = recombine_schedule(kh, kw, cin, bk, variant=variant,
-                                        base_bits=base_bits)
-    span_c = group_spans(cin, bk, fold_every)[0][1]
-    cmax_p = _padded_cmax(x, pads)
-    if winograd_scale_eligible(kh, kw, stride, cin, variant=variant,
-                               base_bits=base_bits):
-        s_tile = tile_scales_from_cmax(cmax_p, qmax, -(-ho // 2), -(-wo // 2))
-        ascale = tile_scales_upsampled(s_tile, ho, wo)
+    pool = _pool_tuple(pool)
+    kernel_pool = None
+    if pool is not None and pool[2] == "VALID" and pool[:2] in KERNEL_POOLS:
+        kernel_pool = pool[:2]
+    # Bias rides the kernel's epilogue unless the pool runs after the core.
+    kbias = bias if pool is None or kernel_pool is not None else None
+    if handoff_in:
+        out = conv2d_implicit_handoff_raw(
+            x.values, x.scale, w.values, w.scale, kbias, bk=bk,
+            variant=variant, base_bits=base_bits, pool=kernel_pool)
     else:
-        ascale = patch_scales(cmax_p, kh, kw, stride, qmax)[:, :ho, :wo]
-    out = conv2d_implicit_raw(
-        x, w.values, ascale.contiguous(), w.scale, bias, stride=stride,
-        pads=(pads[0][0], pads[1][0]), out_hw=(ho, wo), span_c=span_c,
-        variant=variant, base_bits=base_bits)
-    return _activate(out, activation)
+        x = x.to(torch.float32)
+        ho, wo, pads = conv_pads(x.shape[1], x.shape[2], kh, kw, stride,
+                                 padding)
+        if fold_every is None:
+            fold_every = recombine_schedule(kh, kw, cin, bk, variant=variant,
+                                            base_bits=base_bits)
+        span_c = group_spans(cin, bk, fold_every)[0][1]
+        cmax_p = _padded_cmax(x, pads)
+        if winograd_scale_eligible(kh, kw, stride, cin, variant=variant,
+                                   base_bits=base_bits):
+            s_tile = tile_scales_from_cmax(cmax_p, qmax, -(-ho // 2),
+                                           -(-wo // 2))
+            ascale = tile_scales_upsampled(s_tile, ho, wo)
+        else:
+            ascale = patch_scales(cmax_p, kh, kw, stride, qmax)[:, :ho, :wo]
+        out = conv2d_implicit_raw(
+            x, w.values, ascale.contiguous(), w.scale, kbias, stride=stride,
+            pads=(pads[0][0], pads[1][0]), out_hw=(ho, wo), span_c=span_c,
+            variant=variant, base_bits=base_bits, pool=kernel_pool)
+    if pool is not None and kernel_pool is None:
+        out = pool2d(out, window=pool[0], stride=pool[1], kind="max",
+                     padding=pool[2])
+        if bias is not None:
+            out = out + bias.to(torch.float32)
+    out = _activate(out, activation)
+    if quantize_next is not None:
+        return handoff_quantize(out, base_bits=int(quantize_next))
+    return out
 
 
 def _weight_planes(w: QWeight):

@@ -2,12 +2,17 @@
 
     python -m repro_torch.launch.serve --arch alexnet --policy kom_int14 \\
         --buckets 1,4,16 --requests 32 [--device cpu] [--reduced]
+    python -m repro_torch.launch.serve --arch vgg16 --policy kom_int14 \\
+        --explore --model-only --requant
 
 Runs on the GPU unless ``--device cpu`` is given (and refuses to start
 without one otherwise).  ``--reduced`` serves the CPU-test twin of the
-config (tiny widths); without it the model is served at full width.  The
-transformer archs, the multi-model dispatcher, fault injection and the
-plan explorer of the reference launcher are not ported yet.
+config (tiny widths); without it the model is served at full width.
+``--explore --model-only [--requant]`` plans every conv layer with the
+port's cost model at launch (``--requant`` allows the ``pool_quant``
+handoff); ``--plan PATH`` serves a saved plan artifact.  The transformer
+archs, the multi-model dispatcher and fault injection of the reference
+launcher are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +28,33 @@ from repro_torch.core.precision import MatmulPolicy
 from repro_torch.device import resolve_device
 
 
+def _cnn_plan(cfg, args, backend: str):
+    """The ExecutionPlan the flags ask for, or None (the engine's chain).
+
+    ``--explore`` runs the port's explorer for this config at launch;
+    ``--plan PATH`` serves a saved artifact for this device type.
+    """
+    from repro_torch.core.planner import explore, load_plans, plan_key
+
+    if args.explore:
+        plan = explore(cfg, model_only=args.model_only, backend=backend,
+                       requant=args.requant)
+    elif args.plan:
+        plans = load_plans(args.plan, backend=backend)
+        key = plan_key(cfg.name, cfg.policy)
+        if key not in plans:
+            raise SystemExit(f"--plan {args.plan}: no plan for {key!r} "
+                             f"(has {sorted(plans)})")
+        plan = plans[key]
+    else:
+        return None
+    for e in plan.entries:
+        print(f"[serve] plan {e.key}: {e.path} block="
+              f"{list(e.block) if e.block else '-'} fusion={e.fusion} "
+              f"est_us={e.est_us} ({e.source})")
+    return plan
+
+
 def serve_cnn(cfg, args) -> int:
     from repro_torch.models.cnn import cnn_init
     from repro_torch.serving.cnn_engine import CNNServeEngine, ImageRequest
@@ -31,7 +63,8 @@ def serve_cnn(cfg, args) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     params = cnn_init(cfg, gen, device=device)
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    engine = CNNServeEngine(cfg, params, buckets=buckets, device=device)
+    engine = CNNServeEngine(cfg, params, buckets=buckets, device=device,
+                            plan=_cnn_plan(cfg, args, device.type))
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     h, c = cfg.img_size, cfg.in_channels
@@ -75,8 +108,23 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the tiny-width twin of the config")
+    ap.add_argument("--plan", default=None,
+                    help="serve a saved ExecutionPlan artifact "
+                         "(repro_torch/tuned/plans/<backend>.json)")
+    ap.add_argument("--explore", action="store_true",
+                    help="plan every conv layer with the explorer at launch")
+    ap.add_argument("--model-only", action="store_true",
+                    help="with --explore: rank by the H100 roofline cost "
+                         "model (the only mode ported)")
+    ap.add_argument("--requant", action="store_true",
+                    help="with --explore: allow the pool_quant handoff "
+                         "(the next layer reads the producer's int16)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.explore and args.plan:
+        ap.error("--explore and --plan are mutually exclusive")
+    if (args.model_only or args.requant) and not args.explore:
+        ap.error("--model-only and --requant go with --explore")
     cfg = get_config(args.arch, policy=MatmulPolicy(args.policy))
     if args.reduced:
         cfg = reduced(cfg)

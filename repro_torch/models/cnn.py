@@ -17,12 +17,13 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.core.precision import MatmulPolicy, policy_linear
-from repro_torch.core.substrate import (QWeight, conv2d, not_ported,
+from repro_torch.core.substrate import (QActivation, QWeight, conv2d,
                                         policy_int_spec, quantize_weight)
 from repro_torch.core.systolic import pool2d
 from repro_torch.device import resolve_device
 
-#: Thin-stem floor for the pool_quant handoff (kept for the topology walker).
+#: Thin-stem floor for the pool_quant handoff: a producer with fewer output
+#: channels hands no QActivation on (the topology walker and cnn_forward).
 HANDOFF_MIN_CIN = 16
 
 
@@ -183,22 +184,48 @@ def cnn_quantize_params(params, cfg: CNNConfig) -> list:
     return out
 
 
-def cnn_forward(params, cfg: CNNConfig, x: torch.Tensor, plan=None
-                ) -> torch.Tensor:
+def _handoff_consumer_ok(cfg: CNNConfig, params, i: int) -> bool:
+    """True iff conv position ``i``'s pool_quant handoff has a taker.
+
+    The layer after position ``i``'s pool must be a 3x3/s1 conv on the
+    cached-QWeight serving path, fed by at least HANDOFF_MIN_CIN channels
+    -- the conditions under which :func:`conv2d` accepts a QActivation.
+    """
+    j = i + 2
+    if j >= len(cfg.layers) or cfg.layers[j][0] != "conv":
+        return False
+    _, k2, _, stride2 = cfg.layers[j]
+    _, _, cout_i, _ = cfg.layers[i]
+    return (k2 == 3 and stride2 == 1 and cout_i >= HANDOFF_MIN_CIN
+            and isinstance(params[j]["w"], QWeight))
+
+
+def cnn_forward(params, cfg: CNNConfig, x: torch.Tensor, plan=None, *,
+                fuse: bool = True) -> torch.Tensor:
     """x: (n, H, W, C) image batch -> (n, n_classes) logits.
 
     ``plan``: an ExecutionPlan fixing each conv layer's engine; ``None`` with
     ``cfg.conv_path == "auto"`` resolves the heuristic plan for the device
     ``x`` lives on.  Plan entries apply to layers on the cached-weight path
     and layers a plan does not cover fall back to auto dispatch, as in the
-    reference.  The pooled and handoff epilogue fusions are not ported yet.
+    reference.
+
+    Entries with ``fusion`` "pool"/"pool_quant" fold the FOLLOWING maxpool
+    (and the next layer's activation quantization) into the implicit conv's
+    epilogue where the topology allows it (a pool next; for pool_quant an
+    eligible 3x3/s1 consumer, which then reads the QActivation).
+    ``fuse=False`` runs the unfused pipeline for the same plan (conv, then
+    ``pool2d``, then ``handoff_quantize``); the two are bitwise equal.
     """
     use_plan = cfg.conv_path == "auto"
     if use_plan and plan is None:
         from repro_torch.core.planner import resolve_plan
         plan = resolve_plan(cfg, backend=x.device.type)
-    int_policy = policy_int_spec(cfg.policy) is not None
+    spec_int = policy_int_spec(cfg.policy)
+    int_policy = spec_int is not None
     first_conv = True
+    skip_pool = False        # the previous conv already pooled in-epilogue
+    quant_after_pool = None  # unfused pipeline: quantize after pool2d
     for i, spec in enumerate(cfg.layers):
         p = params[i]
         if spec[0] == "conv":
@@ -212,15 +239,36 @@ def cnn_forward(params, cfg: CNNConfig, x: torch.Tensor, plan=None
                                   cin=x.shape[3], cout=cout, padding=padding)
                 if ent is not None:
                     path, block, fusion = ent.path, ent.block, ent.fusion
-            if fusion in ("pool", "pool_quant"):
-                raise not_ported(f"the {fusion!r} epilogue fusion",
-                                 "Queue 2 item 2: the implicit kernel's "
-                                 "pool and handoff epilogues")
-            x = conv2d(x, p["w"], stride=stride, padding=padding,
-                       policy=cfg.policy, path=path, block=block,
-                       bias=p["b"], activation="relu")
+            if isinstance(x, QActivation) and path != "implicit":
+                # A handoff input is an implicit-engine contract.
+                path, block = "implicit", None
+            do_pool = (fusion in ("pool", "pool_quant") and path == "implicit"
+                       and i + 1 < len(cfg.layers)
+                       and cfg.layers[i + 1] == ("pool",))
+            do_quant = (do_pool and fusion == "pool_quant" and int_policy
+                        and _handoff_consumer_ok(cfg, params, i))
+            if fuse and do_pool:
+                x = conv2d(x, p["w"], stride=stride, padding=padding,
+                           policy=cfg.policy, path=path, block=block,
+                           bias=p["b"], activation="relu",
+                           pool=(2, 2, "VALID"),
+                           quantize_next=spec_int[1] if do_quant else None)
+                skip_pool = True
+            else:
+                x = conv2d(x, p["w"], stride=stride, padding=padding,
+                           policy=cfg.policy, path=path, block=block,
+                           bias=p["b"], activation="relu")
+                if do_quant:
+                    quant_after_pool = spec_int[1]
         elif spec[0] == "pool":
-            x = pool2d(x, window=2, stride=2, kind="max")
+            if skip_pool:
+                skip_pool = False
+            else:
+                x = pool2d(x, window=2, stride=2, kind="max")
+                if quant_after_pool is not None:
+                    from repro_torch.kernels.conv2d import handoff_quantize
+                    x = handoff_quantize(x, base_bits=quant_after_pool)
+                    quant_after_pool = None
         else:
             if x.ndim == 4:
                 x = x.reshape(x.shape[0], -1)

@@ -10,10 +10,16 @@ The port of ``repro.serving.cnn_engine``:
   become cached :class:`~repro_torch.core.substrate.QWeight` leaves once at
   build; each step quantizes activations only, per row / patch / tile, so a
   request's logits do not depend on its batch-mates or padding.
-* **Planned conv dispatch**: the ExecutionPlan is resolved once at build.
+* **Planned conv dispatch**: the ExecutionPlan is resolved once at build;
+  a fused plan (``pool``/``pool_quant`` entries, e.g. from
+  ``explore(cfg, model_only=True, requant=True)``) runs the implicit
+  kernel's pooled epilogue and its int16 handoff between layers.
 * **OOM degrade ladder**: drop the largest bucket, then reroute the plan to
-  :func:`~repro_torch.core.planner.materialized_fallback_plan` (same
-  logits), then go down with pending requests failed typed.
+  :func:`~repro_torch.core.planner.materialized_fallback_plan`, then go
+  down with pending requests failed typed.  The degraded logits equal the
+  healthy ones for plans without pool fusions; the reroute downgrades pool
+  fusions, so under a ``pool``/``pool_quant`` plan they equal the
+  reference's degraded (materialized) forward instead.
 
 PyTorch runs eagerly, so there is no compile step: each bucket shape is
 simply a forward.  Data parallelism over a mesh and fault injection are

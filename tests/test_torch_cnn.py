@@ -221,7 +221,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.models,"
             " repro_torch.kernels.kom_matmul, repro_torch.kernels.conv2d,"
             " repro_torch.serving.cnn_engine, repro_torch.launch.serve,"
-            " repro_torch.convert, chip_smoke;"
+            " repro_torch.convert, repro_torch.core.planner,"
+            " repro_torch.core.tuning, repro_torch.analysis.roofline,"
+            " chip_smoke;"
             " bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
             " or m.startswith(('jax.', 'repro.'))];"
             " assert not bad, bad")

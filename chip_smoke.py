@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Proof on an NVIDIA GPU that the port's integer AlexNet and VGG16 paths run.
+"""Proof on an NVIDIA GPU that the port's AlexNet and VGG16 paths run.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
 
 1. report the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the three CUDA kernels from ``repro_torch/csrc`` (one ``nvcc``
-   per source, all at once) and print the build time;
+2. build the CUDA kernels from ``repro_torch/csrc`` (one ``nvcc`` per
+   source, all at once) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card at
    AlexNet's full-width shapes (batch 16) under ``kom_int14`` and
    ``schoolbook_int16``: max abs difference must be 0; time both, and time
@@ -33,8 +33,42 @@ Phases, each fatal on failure:
    equal the plain-version forward on the card bit for bit, and a reduced
    VGG16 forward under its fused plan on the card must equal the CPU plain
    versions bit for bit;
-7. print the card line, a ``kernels`` JSON line and, last,
-   ``{"ok": true, "device": ...}``.
+7. hold the systolic conv (``karatsuba``/``schoolbook``: max abs
+   difference 0), the float conv kernel (``native``, which the systolic
+   engine's ``native`` variant shares, ``bf16x3``, ``bf16x6``) and the
+   bf16-limb GEMM (passes 3/4/6) against their plain versions on the card
+   (TF32 off) at every full-width VGG16 conv geometry and FC shape (batch
+   8), the integer systolic also at AlexNet conv2 (batch 16).  A float
+   plain version is its schedule's exact value rounded once, so a float
+   row must satisfy ``max|kernel - plain| <= 1e-6 * max|plain|`` while the
+   plain version of the neighbouring schedule (bf16x3 for native, bf16x4
+   and bf16x6; native for bf16x3) on the same inputs must miss it.  Times
+   beside one PyTorch call for the same function: ``F.conv2d`` (fp32,
+   channels-last) for the float convs, ``torch.matmul`` (fp32) for the
+   GEMM;
+8. serve full-width VGG16 under ``kom_int14`` with every conv pinned to
+   the systolic engine (``conv_path="systolic"``, buckets 1/4/8, 16
+   requests): per forward 13 systolic and 3 limb-GEMM launches, logits
+   equal to the plain-version forward on the card and to the same image
+   served alone, bit for bit; reduced VGG16 and AlexNet on the systolic
+   path on the card equal the CPU plain versions bit for bit; then a
+   full-width ``fp32`` systolic forward of 4 images (13 native launches),
+   the accuracy yardstick: the integer logits within max relative error
+   1e-2 of it;
+9. serve full-width VGG16 under ``bf16x3`` on the implicit engine
+   (buckets 1/4/8, 16 requests): per forward 13 ``implicit_conv_bf16x3``
+   and 3 bf16-GEMM launches, logits within 1e-5 relative of the
+   plain-version forward on the card and within 1e-3 relative (of max
+   |logit|) of the fp32 logits; reduced VGG16 under ``bf16x6`` and
+   ``fp32`` (implicit) on the card within 1e-6 of the CPU (which the CPU's
+   bf16x3 logits must miss), under ``bf16x3`` within 1e-5.  A whole
+   bf16x3 forward cannot be held tighter: moving an input by one f32 ulp
+   can move its low bf16 limb by 2^7 times more, so ulp-level differences
+   between layers grow to the size of the schedule's own error; phase 7
+   holds the schedule itself;
+10. print the card line, a ``kernels`` JSON line (launches: the serving
+    runs and the fp32 yardstick forward, each counted from 0) and, last,
+    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 ``repro_torch`` package beside it.
@@ -46,24 +80,36 @@ import subprocess
 import sys
 import time
 
-#: The card's published peaks (NVIDIA H100 SXM data sheet, dense): int8
-#: tensor-core operations per second and HBM bytes per second.
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES = 3.35e12
-
 BATCH = 16
 VGG_BATCH = 8
 POLICIES = ("kom_int14", "schoolbook_int16")
+#: The float kernels against their plain versions (each schedule's exact
+#: value, rounded once): max|kernel - plain| <= FLOAT_TOL * max|plain|,
+#: which the plain version of the neighbouring schedule must miss.
+FLOAT_TOL = 1e-6
+#: Whole bf16x3 forwards, kernels against plain versions (docstring, 9).
+FORWARD_TOL_BF16X3 = 1e-5
+#: Each float schedule -> the neighbouring one its check must tell it from.
+NEIGHBOUR = {"native": "bf16x3", "bf16x3": "native", "bf16x6": "bf16x3"}
 #: The JSON line's kernels: each launch counter of the build's wrappers.
 KERNELS = ("kom_matmul", "implicit_conv", "implicit_conv_pool",
-           "implicit_conv_handoff", "winograd")
+           "implicit_conv_handoff", "winograd", "systolic_conv",
+           "systolic_conv_native", "implicit_conv_native",
+           "implicit_conv_bf16x3", "implicit_conv_bf16x6", "bf16_matmul")
+_IMPLICIT = "src/repro/kernels/conv2d/implicit_gemm.py:131"
 #: Where each ported kernel came from (the Pallas kernel's definition).
 REPLACES = {
     "kom_matmul": "src/repro/kernels/kom_matmul/kom_matmul.py:27",
-    "implicit_conv": "src/repro/kernels/conv2d/implicit_gemm.py:131",
-    "implicit_conv_pool": "src/repro/kernels/conv2d/implicit_gemm.py:131",
-    "implicit_conv_handoff": "src/repro/kernels/conv2d/implicit_gemm.py:131",
+    "implicit_conv": _IMPLICIT,
+    "implicit_conv_pool": _IMPLICIT,
+    "implicit_conv_handoff": _IMPLICIT,
     "winograd": "src/repro/kernels/conv2d/winograd.py:416",
+    "systolic_conv": "src/repro/kernels/conv2d/conv2d.py:78",
+    "systolic_conv_native": "src/repro/kernels/conv2d/conv2d.py:78",
+    "implicit_conv_native": _IMPLICIT,
+    "implicit_conv_bf16x3": _IMPLICIT,
+    "implicit_conv_bf16x6": _IMPLICIT,
+    "bf16_matmul": "src/repro/kernels/kom_matmul/kom_matmul.py:99",
 }
 SOURCES = {
     "kom_matmul": "repro_torch/csrc/kom_matmul.cu",
@@ -71,6 +117,12 @@ SOURCES = {
     "implicit_conv_pool": "repro_torch/csrc/implicit_conv.cu",
     "implicit_conv_handoff": "repro_torch/csrc/implicit_conv.cu",
     "winograd": "repro_torch/csrc/winograd.cu",
+    "systolic_conv": "repro_torch/csrc/systolic_conv.cu",
+    "systolic_conv_native": "repro_torch/csrc/implicit_conv_float.cu",
+    "implicit_conv_native": "repro_torch/csrc/implicit_conv_float.cu",
+    "implicit_conv_bf16x3": "repro_torch/csrc/implicit_conv_float.cu",
+    "implicit_conv_bf16x6": "repro_torch/csrc/implicit_conv_float.cu",
+    "bf16_matmul": "repro_torch/csrc/bf16_matmul.cu",
 }
 #: Full-width VGG16 (h, cin, cout) of each pool-followed conv (pooled
 #: variant) and each conv fed by a pool_quant handoff (handoff variant).
@@ -78,6 +130,9 @@ VGG16_POOLED = ((224, 64, 64), (112, 128, 128), (56, 256, 256),
                 (28, 512, 512), (14, 512, 512))
 VGG16_HANDOFF = ((112, 64, 128), (56, 128, 256), (28, 256, 512),
                  (14, 512, 512))
+#: Full-width VGG16's FC layers, (k, n).
+VGG16_FC = (("fc6", (25088, 4096)), ("fc7", (4096, 4096)),
+            ("fc8", (4096, 1000)))
 
 
 def log(msg: str) -> None:
@@ -107,8 +162,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(ops: float, nbytes: float, kind: str = "int8"
+             ) -> tuple[float, str]:
+    """The least time the card could take: the larger of ``ops`` at the
+    published peak of the type they run in (``kind``: int8, bf16, fp32)
+    and ``nbytes`` at the HBM rate (``repro_torch.analysis.roofline``)."""
+    from repro_torch.analysis.roofline import H100
+    t_ops, t_bytes = ops / H100["peak_" + kind], nbytes / H100["hbm_bw"]
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -219,37 +279,49 @@ def int_mm_passes_ms(torch, a16, b16, variant, bb) -> float | None:
 
 
 def compare_call(torch, build, policy, name, label, run, ops, nbytes,
-                 lib_ms=None) -> tuple:
-    """Kernel vs plain version on the same inputs: exact, then timed.
+                 lib_ms=None, kind="int8", tol=None, control=None) -> tuple:
+    """Kernel vs plain version on the same inputs, then timed: exact, or
+    with ``tol`` max|kernel - plain| <= tol * max|plain|, while the plain
+    version of the neighbouring schedule (``control()``) misses ``tol``.
     Returns (max_abs_err, kernel ms, plain ms)."""
     got = run()
     with build.plain_versions():
         want = run()
+        other = None if control is None else control()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     nan = bool(torch.isnan(got).any() or torch.isnan(want).any())
-    same = torch.equal(got, want)
+    peak = max(float(want.abs().max()), 1e-30)
+    rel = err / peak
+    ok = torch.equal(got, want) if tol is None else rel <= tol
+    gap = None
+    if other is not None:
+        gap = float((other - want).abs().max()) / peak
+        log(f"[compare] {name} {label}: the neighbouring schedule's plain "
+            f"version is {gap:.3e} away (must exceed {tol})")
+        ok = ok and gap > tol
     ms = cuda_ms(run, iters=10)
     with build.plain_versions():
         plain_ms = cuda_ms(run, iters=3, warmup=1)
-    b_ms, b_by = bound_ms(ops, nbytes)
+    b_ms, b_by = bound_ms(ops, nbytes, kind)
     log(f"[compare] {policy:16s} {name:21s} {label:7s} "
-        f"shape={tuple(got.shape)} max_abs_err={err} "
+        f"shape={tuple(got.shape)} max_abs_err={err} max_rel={rel:.3e} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-        f"bound_ms={b_ms:.5f} ({b_by})")
-    if nan or not same or err != 0.0:
+        f"bound_ms={b_ms:.5f} ({b_by}, {kind})")
+    if nan or not ok:
         raise SystemExit(f"{name}/{label}/{policy}: kernel != plain "
-                         f"(max_abs_err={err}, nan={nan})")
+                         f"(max_abs_err={err}, max_rel={rel}, tol={tol}, "
+                         f"neighbour gap={gap}, nan={nan})")
     return err, ms, plain_ms
 
 
 def add_summary(summary, name, err, ms, plain_ms, ops, nbytes, lib_ms,
-                has_library):
+                has_library, kind="int8"):
     s = summary.setdefault(name, {
         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
         "library_ms": 0.0 if has_library else None,
-        "max_abs_err": 0.0, "ops": 0.0, "bytes": 0.0})
+        "max_abs_err": 0.0, "ops": 0.0, "bytes": 0.0, "kind": kind})
     s["ms"] += ms
     s["plain_ms"] += plain_ms
     s["ops"] += ops
@@ -281,7 +353,8 @@ def phase_compare(torch) -> dict:
     log("[compare] the implicit and Winograd convs have no single PyTorch "
         "call computing the same quantized limb arithmetic: library_ms null")
     for s in summary.values():
-        s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"])
+        s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"],
+                                                s["kind"])
     return summary
 
 
@@ -380,7 +453,142 @@ def phase_compare_fused(torch) -> dict:
     log("[compare] the pooled and handoff variants have no single PyTorch "
         "call computing the same quantized limb arithmetic: library_ms null")
     for s in summary.values():
-        s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"])
+        s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"],
+                                                s["kind"])
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the systolic conv, the float implicit variants, the bf16 GEMM.
+# ---------------------------------------------------------------------------
+
+def _conv_library_ms(torch, x, w, bias, pad: int) -> float:
+    """Yardstick: one fp32 ``F.conv2d`` (channels-last, TF32 off) for the
+    same NHWC conv."""
+    import torch.nn.functional as F
+    xc = x.permute(0, 3, 1, 2)                       # channels-last view
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return cuda_ms(lambda: F.conv2d(xc, wc, bias, padding=pad), iters=10)
+
+
+def systolic_float_calls(torch, gen, dev) -> list:
+    """One (kernel, policy, label, run, ops, bytes, kind, tol, library ms,
+    summed, control) per call: every full-width VGG16 conv geometry at
+    batch 8 under the integer systolic engine (``karatsuba``,
+    ``schoolbook``) and the float conv kernel (``native`` -- the systolic
+    engine's native variant too -- ``bf16x3``, ``bf16x6``), AlexNet conv2
+    (batch 16) on the integer systolic, and VGG16's three FC shapes (batch
+    8) on the bf16-limb GEMM with passes 3, 4 and 6.  ``summed``: the call
+    belongs to the JSON line's per-forward sums (kom_int14, bf16x3 GEMM);
+    ``control``: the neighbouring schedule's call on the same inputs."""
+    from repro_torch.core.karatsuba import schedule_dot
+    from repro_torch.core.substrate import (INT_POLICY_SPECS, kom_qmax,
+                                            quantize_symmetric)
+    from repro_torch.kernels.conv2d.conv2d import conv2d_systolic_raw
+    from repro_torch.kernels.conv2d.implicit_gemm import (
+        conv2d_implicit_float_raw)
+    from repro_torch.kernels.kom_matmul import bf16x3_matmul
+    from repro_torch.models.cnn import ALEXNET, VGG16, cnn_conv_geometries
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    calls = []
+    geoms = [(f"v{g['h']}-{g['cin']}", VGG_BATCH, g)
+             for g in cnn_conv_geometries(VGG16)]
+    alex2 = ("a-conv2", BATCH, cnn_conv_geometries(ALEXNET)[1])
+    for label, n, g in geoms + [alex2]:
+        h, k, cin, cout = g["h"], g["kh"], g["cin"], g["cout"]
+        pad = k // 2
+        macs = float(n * h * h * k * k * cin * cout)
+        x = torch.relu(randn((n, h, h, cin)))
+        w = randn((k, k, cin, cout), (k * k * cin) ** -0.5)
+        bias = randn((cout,), 0.1)
+        out_bytes = 4 * n * h * h * cout
+        for policy in POLICIES:
+            variant, bb = INT_POLICY_SPECS[policy]
+            qmax = kom_qmax(bb)
+            qx = quantize_symmetric(x, base_bits=bb, axis=0)
+            xq = qx.values.to(torch.int16)
+            wq = torch.randint(-qmax, qmax + 1, (k, k, cin, cout),
+                               generator=gen, dtype=torch.int32).to(
+                                   torch.int16).to(dev)
+            scale = (qx.scale.reshape(n, 1)
+                     * (torch.rand(cout, generator=gen) * 1e-4).to(dev))
+            run = (lambda xq=xq, wq=wq, sc=scale, b=bias, v=variant, bb=bb,
+                   h=h, pad=pad: conv2d_systolic_raw(
+                       xq, wq, sc, b, stride=1, pads=(pad, pad),
+                       out_hw=(h, h), variant=v, base_bits=bb))
+            nbytes = 2 * (xq.numel() + wq.numel()) + 4 * (
+                scale.numel() + cout) + out_bytes
+            passes = 3 if variant == "karatsuba" else 4
+            calls.append(("systolic_conv", policy, label, run,
+                          2 * macs * passes, nbytes, "int8", None, None,
+                          policy == "kom_int14" and label != alex2[0], None))
+        if label == alex2[0]:
+            continue
+        lib_ms = _conv_library_ms(torch, x, w, bias, pad)
+        nbytes = 4 * (x.numel() + w.numel() + cout) + out_bytes
+
+        def run_for(v, x=x, w=w, b=bias, h=h, pad=pad):
+            return lambda: conv2d_implicit_float_raw(
+                x, w, b, stride=1, pads=(pad, pad), out_hw=(h, h), variant=v)
+        for variant, passes in (("native", 1), ("bf16x3", 3),
+                                ("bf16x6", 6)):
+            calls.append((f"implicit_conv_{variant}",
+                          "fp32" if variant == "native" else variant, label,
+                          run_for(variant), 2 * macs * passes, nbytes,
+                          "fp32" if variant == "native" else "bf16",
+                          FLOAT_TOL, lib_ms, True,
+                          run_for(NEIGHBOUR[variant])))
+    for label, (k, n) in VGG16_FC:
+        m = VGG_BATCH
+        a, b = torch.relu(randn((m, k))), randn((k, n), k ** -0.5)
+        lib_ms = cuda_ms(lambda a=a, b=b: torch.matmul(a, b), iters=10)
+        for passes in (3, 4, 6):
+            run = (lambda a=a, b=b, p=passes: bf16x3_matmul(a, b, passes=p))
+            nb = {3: 1, 4: 3, 6: 3}[passes]   # native f32, bf16x3, bf16x3
+            control = (lambda a=a, b=b, q=nb:
+                       schedule_dot(a, b, passes=q).float())
+            calls.append(("bf16_matmul", f"bf16x{passes}", label, run,
+                          2.0 * m * k * n * passes,
+                          4 * (m * k + k * n + m * n), "bf16", FLOAT_TOL,
+                          lib_ms, passes == 3, control))
+    return calls
+
+
+def phase_compare_systolic_float(torch) -> dict:
+    """Phase 7; the summary sums one VGG16 forward's calls: the integer
+    systolic under kom_int14, the float convs, the bf16x3 GEMM.  The
+    systolic engine's native variant runs the float conv kernel's native
+    instantiation, so its row reports that kernel's numbers."""
+    from repro_torch.kernels import build
+
+    gen = torch.Generator().manual_seed(3)
+    summary, schoolbook_ms = {}, 0.0
+    for (name, policy, label, run, ops, nbytes, kind, tol, lib_ms,
+         summed, control) in systolic_float_calls(torch, gen,
+                                                  torch.device("cuda")):
+        err, ms, plain_ms = compare_call(torch, build, policy, name, label,
+                                         run, ops, nbytes, lib_ms, kind, tol,
+                                         control)
+        if summed:
+            add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
+                        lib_ms, lib_ms is not None, kind)
+        else:
+            s = summary.get(name)
+            if s is not None:
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+            if policy == "schoolbook_int16" and label.startswith("v"):
+                schoolbook_ms += ms
+    log(f"[compare] systolic_conv schoolbook_int16: {schoolbook_ms:.4f} ms "
+        "over the VGG16 geometries; the integer systolic conv has no single "
+        "PyTorch call computing the same quantized limb arithmetic: "
+        "library_ms null")
+    for s in summary.values():
+        s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"],
+                                                s["kind"])
+    summary["systolic_conv_native"] = dict(summary["implicit_conv_native"])
     return summary
 
 
@@ -589,6 +797,217 @@ def phase_serve_vgg16(torch, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-9: full-width VGG16 on the systolic engine and under bf16x3.
+# ---------------------------------------------------------------------------
+
+def serve_burst(torch, eng, imgs, tag: str) -> tuple:
+    """Warm the engine up, then serve ``imgs`` as one burst with the
+    launch counters reset just before.  Returns (logits, launches,
+    forwards, wall seconds)."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.cnn_engine import ImageRequest
+
+    t0 = time.perf_counter()
+    eng.warmup()
+    log(f"[{tag}] warmup {time.perf_counter() - t0:.2f}s "
+        f"(buckets {eng.buckets})")
+    steps0 = eng.batcher.steps
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for uid in range(len(imgs)):
+        eng.submit(ImageRequest(uid=uid, image=imgs[uid]))
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts()
+    forwards = eng.batcher.steps - steps0
+    if sorted(done) != list(range(len(imgs))):
+        raise SystemExit(f"[{tag}] served {len(done)} of {len(imgs)}")
+    logits = np.stack([done[u].logits for u in range(len(imgs))])
+    if logits.shape != (len(imgs), eng.cfg.n_classes) \
+            or not np.isfinite(logits).all():
+        raise SystemExit(f"[{tag}] bad logits: shape {logits.shape}")
+    return logits, launches, forwards, wall
+
+
+def check_launches(tag, launches, want) -> None:
+    log(f"[{tag}] launches {launches}, expected {want}")
+    if launches != want:
+        raise SystemExit(f"[{tag}] launch counts {launches} != {want}")
+
+
+def log_stats(tag, eng, n_req, wall, card) -> None:
+    s = eng.stats()
+    log(f"[{tag}] {eng.cfg.name}/{eng.cfg.policy.value}/{eng.cfg.conv_path} "
+        f"on {card}: {s['images_done']} images, "
+        f"{s['images_per_s']:.1f} img/s batched, {n_req / wall:.1f} img/s "
+        f"wall, p50 latency {1e3 * s['latency_p50_s']:.2f} ms, "
+        f"p95 latency {1e3 * s['latency_p95_s']:.2f} ms, "
+        f"buckets {s['bucket_counts']}")
+
+
+def reduced_card_vs_cpu(torch, arch, policy, path, tol, tag,
+                        control=None) -> None:
+    """A reduced model with every conv on ``path``: the kernels on the card
+    against the plain versions on the CPU (bitwise when ``tol`` is None);
+    the CPU forward under the ``control`` policy (implicit) must miss
+    ``tol``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.models.cnn import (cnn_forward, cnn_init,
+                                        cnn_quantize_params)
+    from repro_torch.serving.cnn_engine import params_to
+
+    cfg = reduced(get_config(arch, policy=MatmulPolicy(policy),
+                             conv_path=path))
+    gen = torch.Generator().manual_seed(1)
+    rp = cnn_quantize_params(
+        random_biases(torch, cnn_init(cfg, gen, device="cpu"), gen), cfg)
+    xs = torch.randn((2, cfg.img_size, cfg.img_size, 3), generator=gen)
+    with torch.inference_mode():
+        cpu_out = cnn_forward(rp, cfg, xs).numpy()
+        gpu_out = cnn_forward(params_to(rp, "cuda"), cfg,
+                              xs.cuda()).cpu().numpy()
+        other = None if control is None else cnn_forward(rp, cfg.replace(
+            policy=MatmulPolicy(control), conv_path="implicit"), xs).numpy()
+    peak = float(np.abs(cpu_out).max())
+    rel = float(np.abs(cpu_out - gpu_out).max()) / peak
+    ok = np.array_equal(cpu_out, gpu_out) if tol is None else rel <= tol
+    note = ""
+    if other is not None:
+        gap = float(np.abs(other - cpu_out).max()) / peak
+        note = f"; the CPU's {control} logits are {gap:.3e} away"
+        ok = ok and gap > tol
+    log(f"[{tag}] reduced {arch} {policy}/{path}: card vs CPU max rel err "
+        f"{rel:.3e} ({'bitwise' if tol is None else f'tolerance {tol}'})"
+        f"{note}")
+    if not ok:
+        raise SystemExit(f"reduced {arch} {policy}/{path}: card kernels != "
+                         f"CPU plain versions (max rel err {rel})")
+
+
+def vgg16_params(torch) -> list:
+    """Full-width VGG16 float params on the card (seed 0, random biases),
+    shared by the kom_int14, fp32 and bf16x3 runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.cnn import cnn_init
+
+    gen = torch.Generator().manual_seed(0)
+    return random_biases(torch, cnn_init(get_config("vgg16"), gen,
+                                         device="cuda"), gen)
+
+
+def phase_serve_vgg16_systolic(torch, card: str, params) -> tuple:
+    """Phase 8.  Returns (launches of the serving run and of the fp32
+    forward, the fp32 logits of the first 4 images, those images)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.models.cnn import cnn_forward
+    from repro_torch.serving.cnn_engine import CNNServeEngine
+
+    tag = "systolic"
+    cfg = get_config("vgg16", policy=MatmulPolicy.KOM_INT14,
+                     conv_path="systolic")
+    eng = CNNServeEngine(cfg, params, buckets=(1, 4, 8), device="cuda")
+    n_req = 16
+    imgs = np.random.default_rng(0).standard_normal(
+        (n_req, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    logits, launches, forwards, wall = serve_burst(torch, eng, imgs, tag)
+    check_launches(tag, launches, {"systolic_conv": 13 * forwards,
+                                   "kom_matmul": 3 * forwards})
+    x_all = torch.from_numpy(imgs).cuda()
+    with build.plain_versions():
+        plain = eng.forward(x_all).cpu().numpy()
+    if not np.array_equal(plain, logits):
+        raise SystemExit("systolic VGG16 logits != plain forward on the "
+                         f"card (max diff {np.abs(plain - logits).max()})")
+    alone = eng.forward(x_all[:1]).cpu().numpy()
+    if not np.array_equal(alone[0], logits[0]):
+        raise SystemExit("systolic VGG16: a request served alone != the "
+                         "same request in an 8-image step")
+    log(f"[{tag}] engine logits == plain-version forward on the card, and "
+        "== the image served alone, bitwise")
+    for arch in ("vgg16", "alexnet"):
+        reduced_card_vs_cpu(torch, arch, "kom_int14", "systolic", None, tag)
+    phase_profile(torch, eng, imgs[:VGG_BATCH])
+    log_stats(tag, eng, n_req, wall, card)
+    # The accuracy yardstick: fp32 on the same engine, native variant.
+    fp32 = cfg.replace(policy=MatmulPolicy.FP32)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cnn_forward(params, fp32, x_all[:4])
+        torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    ref = ref.cpu().numpy()
+    fp32_launches = build.launch_counts()
+    check_launches(tag, fp32_launches, {"systolic_conv_native": 13})
+    rel = float(np.abs(logits[:4] - ref).max() / np.abs(ref).max())
+    top1 = float(np.mean(logits[:4].argmax(1) == ref.argmax(1)))
+    log(f"[{tag}] fp32 systolic forward of 4 images {1e3 * fp32_s:.2f} ms; "
+        f"kom_int14 vs fp32 logits: max rel err {rel:.3e}, top-1 agreement "
+        f"{top1}")
+    if not (np.isfinite(ref).all() and rel < 1e-2):
+        raise SystemExit(f"kom_int14 systolic logits too far from fp32 "
+                         f"({rel})")
+    for k, v in fp32_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches, ref, imgs[:4]
+
+
+def phase_serve_vgg16_bf16x3(torch, card: str, params, ref, ref_imgs
+                             ) -> dict:
+    """Phase 9: VGG16 under bf16x3 on the implicit engine."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.serving.cnn_engine import CNNServeEngine
+
+    tag = "bf16x3"
+    cfg = get_config("vgg16", policy=MatmulPolicy.BF16X3,
+                     conv_path="implicit")
+    eng = CNNServeEngine(cfg, params, buckets=(1, 4, 8), device="cuda")
+    n_req = 16
+    imgs = np.random.default_rng(0).standard_normal(
+        (n_req, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+    if not np.array_equal(imgs[:4], ref_imgs):
+        raise SystemExit("the fp32 yardstick saw other images")
+    logits, launches, forwards, wall = serve_burst(torch, eng, imgs, tag)
+    check_launches(tag, launches, {"implicit_conv_bf16x3": 13 * forwards,
+                                   "bf16_matmul": 3 * forwards})
+    x_all = torch.from_numpy(imgs).cuda()
+    with build.plain_versions():
+        plain = eng.forward(x_all).cpu().numpy()
+    rel_plain = float(np.abs(plain - logits).max() / np.abs(plain).max())
+    rel_fp32 = float(np.abs(logits[:4] - ref).max() / np.abs(ref).max())
+    top1 = float(np.mean(logits[:4].argmax(1) == ref.argmax(1)))
+    log(f"[{tag}] engine vs plain-version forward on the card: max rel err "
+        f"{rel_plain:.3e} (tolerance {FORWARD_TOL_BF16X3}); bf16x3 vs fp32 "
+        f"logits: max rel err {rel_fp32:.3e} (limit 1e-3), top-1 agreement "
+        f"{top1}")
+    if not rel_plain <= FORWARD_TOL_BF16X3:
+        raise SystemExit(f"bf16x3 VGG16 logits != plain forward ({rel_plain})")
+    if not rel_fp32 <= 1e-3:
+        raise SystemExit(f"bf16x3 VGG16 logits too far from fp32 ({rel_fp32})")
+    reduced_card_vs_cpu(torch, "vgg16", "bf16x3", "implicit",
+                        FORWARD_TOL_BF16X3, tag)
+    for policy in ("bf16x6", "fp32"):
+        reduced_card_vs_cpu(torch, "vgg16", policy, "implicit", FLOAT_TOL,
+                            tag, control="bf16x3")
+    phase_profile(torch, eng, imgs[:VGG_BATCH])
+    log_stats(tag, eng, n_req, wall, card)
+    return launches
+
+
 def phase_profile(torch, eng, batch) -> None:
     """Where one 16-image serving step (host batch in, host logits out)
     spends its time: its wall clock, and from ``torch.profiler`` the device
@@ -663,10 +1082,18 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
     summary = phase_compare(torch)
     summary.update(phase_compare_fused(torch))
+    summary.update(phase_compare_systolic_float(torch))
     launches = {}
-    for path in (phase_serve, phase_serve_vgg16):
-        for name, n in path(torch, card).items():
+
+    def add(counts):
+        for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    for path in (phase_serve, phase_serve_vgg16):
+        add(path(torch, card))
+    params = vgg16_params(torch)
+    counts, ref, ref_imgs = phase_serve_vgg16_systolic(torch, card, params)
+    add(counts)
+    add(phase_serve_vgg16_bf16x3(torch, card, params, ref, ref_imgs))
     kernels = []
     for name in KERNELS:
         s = summary[name]

@@ -2,11 +2,16 @@
 ``repro.analysis.roofline``'s ``conv_mult_counts`` / ``conv_layer_roofline``).
 
 Priced with the H100 SXM's published dense peaks (NVIDIA data sheet):
-int8 tensor-core operations 1,979 TOP/s, bf16 989 TFLOP/s, HBM3 3.35 TB/s,
-all at the 700 W power limit.  No TPU constant is used here.  The port's
-kernels run their int8 digit passes on the CUDA cores (``__dp4a``), far
-below the tensor-core peak, so the compute term is a floor, not a
-prediction; it is what the explorer's ``--model-only`` mode ranks by.
+int8 tensor-core operations 1,979 TOP/s, bf16 989 TFLOP/s, f32 on the CUDA
+cores 67 TFLOP/s, HBM3 3.35 TB/s, all at the 700 W power limit.  No TPU
+constant is used here.  Each variant's passes are priced at the peak of
+the type they multiply (:func:`variant_peak`): the integer limb passes at
+the int8 rate, the bf16x3/bf16x6 limb passes and ``native_bf16``'s bf16
+products at the bf16 rate, native f32 at the f32 rate.  The port's
+kernels run their passes on the CUDA cores (``__dp4a``, ``__fmaf_rn``),
+far below the tensor-core peaks, so the compute term is a floor, not a
+prediction; it is what the explorer's ``--model-only`` mode ranks by, and
+what ``chip_smoke.py`` reports as each kernel's bound.
 """
 from __future__ import annotations
 
@@ -16,11 +21,26 @@ from typing import Dict
 H100 = {
     "peak_int8": 1979e12,   # int8 tensor-core operations per second
     "peak_bf16": 989e12,    # bf16 tensor-core FLOP per second
+    "peak_fp32": 67e12,     # f32 FLOP per second on the CUDA cores
     "hbm_bw": 3.35e12,      # HBM3 bytes per second
 }
 
-#: int8 passes one wide multiply costs per limb variant.
-_VARIANT_PASSES = {"karatsuba": 3, "schoolbook": 4}
+#: Narrow passes one wide multiply costs per variant: int8 passes of the
+#: limb variants, bf16 passes of the emulation schedules, one f32 product
+#: (``native``) or one bf16 product (``native_bf16``).
+VARIANT_PASSES = {"karatsuba": 3, "schoolbook": 4, "bf16x3": 3, "bf16x6": 6,
+                  "native": 1, "native_bf16": 1}
+
+
+def variant_peak(variant: str) -> float:
+    """Operations per second of the type ``variant``'s passes multiply."""
+    if variant in ("karatsuba", "schoolbook"):
+        return H100["peak_int8"]
+    if variant.startswith("bf16") or variant == "native_bf16":
+        return H100["peak_bf16"]
+    if variant == "native":
+        return H100["peak_fp32"]
+    raise ValueError(f"unknown variant {variant!r}")
 
 
 def conv_mult_counts(path: str, *, kh, kw, stride, h, cin, cout,
@@ -49,8 +69,8 @@ def conv_layer_roofline(path: str, *, kh, kw, stride, h, cin, cout,
                         handoff_in: bool = False) -> Dict[str, float]:
     """H100 roofline floor of one conv layer on engine ``path`` (seconds).
 
-    compute_s: 2 operations per wide multiply times the variant's int8
-    pass count at the int8 peak (float policies: the bf16 peak, one pass).
+    compute_s: 2 operations per wide multiply times the variant's pass
+    count (:data:`VARIANT_PASSES`) at its type's peak (:func:`variant_peak`).
     memory_s: the port's modeled device-memory traffic
     (:func:`repro_torch.core.tuning.conv_hbm_bytes`) at the HBM rate.  The
     floor is their max; ``fusion``/``handoff_in`` move only memory_s.
@@ -59,9 +79,8 @@ def conv_layer_roofline(path: str, *, kh, kw, stride, h, cin, cout,
 
     counts = conv_mult_counts(path, kh=kh, kw=kw, stride=stride, h=h,
                               cin=cin, cout=cout, n=n)
-    passes = _VARIANT_PASSES.get(variant)
-    peak = H100["peak_int8"] if passes else H100["peak_bf16"]
-    compute_s = 2.0 * counts["mults"] * (passes or 1) / peak
+    compute_s = (2.0 * counts["mults"] * VARIANT_PASSES[variant]
+                 / variant_peak(variant))
     memory_s = conv_hbm_bytes(path, kh=kh, kw=kw, stride=stride, h=h,
                               cin=cin, cout=cout, variant=variant, n=n,
                               fusion=fusion,

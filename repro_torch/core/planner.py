@@ -172,7 +172,7 @@ def _policy_variant(policy) -> tuple:
     pv = getattr(policy, "value", policy)
     if pv in INT_POLICY_SPECS:
         return INT_POLICY_SPECS[pv]
-    if pv in ("bf16x3", "bf16x6"):
+    if pv in ("bf16x3", "bf16x6", "native_bf16"):
         return (pv, 7)
     return ("native", 7)
 
@@ -180,11 +180,13 @@ def _policy_variant(policy) -> tuple:
 def candidate_paths(*, kh, kw, stride, cin, padding, policy) -> List[str]:
     """Engines of the port that run this layer exactly, pruned.
 
-    im2col honors every policy.  implicit runs the integer policies (its
-    float variants are not ported) above the thin-stem threshold;
-    winograd needs an integer policy, 3x3/s1/SAME, ``cin >= STEM_CIN`` and
-    the growth bound.  The systolic engine is not ported (its niche in the
-    reference is TPU-only).  The candidates are the same on every device.
+    im2col honors every policy.  implicit runs the integer policies above
+    the thin-stem threshold; winograd needs an integer policy,
+    3x3/s1/SAME, ``cin >= STEM_CIN`` and the growth bound.  The reference
+    lists the systolic engine and the implicit float variants only on the
+    TPU; the port runs both when a caller pins ``conv_path``, and leaves
+    ranking them on the card to the measured explorer (ROADMAP.md).  The
+    candidates are the same on every device.
     """
     from repro_torch.kernels.conv2d.winograd import winograd_accum_bound
 

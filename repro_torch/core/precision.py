@@ -1,9 +1,9 @@
 """Matmul precision policies: the single switch every linear layer uses.
 
-The port of ``repro.core.precision`` for ``fp32``, ``native_bf16`` and the
-two integer KOM policies with a cached :class:`QWeight`.  The integer
-policies with FLOAT weights (the reference's straight-through training
-path) and the bf16x3/bf16x6 emulation schedules are not ported yet.
+The port of ``repro.core.precision`` for ``fp32``, ``native_bf16``, the
+bf16x3/bf16x6 emulation schedules and the two integer KOM policies with a
+cached :class:`QWeight`.  The integer policies with FLOAT weights (the
+reference's straight-through training path) are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,8 +30,10 @@ def policy_dot_general(a: torch.Tensor, b, *, policy=MatmulPolicy.NATIVE_BF16,
 
     Integer policies need a cached :class:`QWeight` ``b``; their bias rides
     the limb GEMM's epilogue as ``fma(raw, t, b)``, as the reference's
-    jitted ``policy_linear(x, w) + b`` computes it.  Float policies add the
-    bias after the product.
+    jitted ``policy_linear(x, w) + b`` computes it.  Float policies
+    dequantize a cached QWeight first and add the bias after the product;
+    under ``bf16x3``/``bf16x6`` the product runs on the bf16-limb GEMM
+    kernel (its plain version, ``bf16xn_dot_general``, on the CPU).
     """
     policy = MatmulPolicy(policy)
     spec = policy_int_spec(policy)
@@ -48,8 +50,11 @@ def policy_dot_general(a: torch.Tensor, b, *, policy=MatmulPolicy.NATIVE_BF16,
     elif policy == MatmulPolicy.FP32:
         out = torch.matmul(a.to(torch.float32), b.to(torch.float32))
     else:
-        raise not_ported(f"policy {policy.value!r}",
-                         "Queue 1 item 2: the bf16x3/bf16x6 schedules")
+        from repro_torch.kernels.kom_matmul import bf16x3_matmul
+        out = bf16x3_matmul(
+            a.reshape(-1, a.shape[-1]), b,
+            passes=3 if policy == MatmulPolicy.BF16X3 else 6,
+        ).reshape(a.shape[:-1] + (b.shape[-1],))
     return out if bias is None else out + bias
 
 

@@ -481,8 +481,10 @@ def select_conv_path(*, kh: int, kw: int, stride: int, cin: int, cout: int,
     Integer policies with a cached :class:`QWeight`: 3x3/s1/SAME layers
     under ``winograd_accum_bound`` -> ``winograd``; other layers with
     ``cin >= STEM_CIN`` -> ``implicit``; thin stems -> ``im2col``.  Float
-    policies -> ``im2col``.  The systolic engine's niche in the reference is
-    TPU-only, so the port never selects it.
+    policies -> ``im2col``.  The reference selects the systolic engine and
+    the implicit float variants only on the TPU, so this rule never picks
+    them; they run when a caller pins ``path`` (their ranking on the card
+    is the measured explorer's work).
     """
     del cout
     pv = getattr(policy, "value", policy)
@@ -507,11 +509,14 @@ def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
     """NHWC conv behind one policy-driven entry point, epilogue fused.
 
     ``w`` is an HWIO float tensor or a cached :class:`QWeight`.  ``path``:
-    ``"auto"`` (the planner's heuristic), ``"im2col"``, ``"implicit"`` or
-    ``"winograd"``.  ``block`` is the engine's tile schedule from a plan;
-    the port's kernels pick their own tiles and read only the implicit
-    engine's Cin chunk (it sets the recombine groups and the handoff
-    consumer's f32 order).
+    ``"auto"`` (the planner's heuristic), ``"im2col"``, ``"systolic"``,
+    ``"implicit"`` or ``"winograd"``; an explicit engine that cannot run
+    ``policy`` exactly raises (:func:`validate_path_policy`).  The systolic
+    engine runs the integer policies and fp32 (a cached QWeight is
+    dequantized under fp32), the implicit engine also bf16x3/bf16x6.
+    ``block`` is the engine's tile schedule from a plan; the port's kernels
+    pick their own tiles and read only the implicit engine's Cin chunk (it
+    sets the recombine groups and the handoff consumer's f32 order).
 
     The implicit engine's epilogue fusions: ``pool=(window, pstride[,
     ppad])`` folds the FOLLOWING maxpool into the conv (the output is the
@@ -520,7 +525,8 @@ def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
     QActivation ``x`` is the consumer side and runs on the implicit engine
     only.  Any other engine raises on either.
     """
-    from repro_torch.kernels.conv2d import conv2d_implicit, conv2d_winograd
+    from repro_torch.kernels.conv2d import (conv2d_implicit, conv2d_systolic,
+                                            conv2d_winograd)
 
     from .systolic import conv2d_im2col
 
@@ -549,20 +555,28 @@ def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
     validate_path_policy(path, policy)
     spec = policy_int_spec(policy)
     if path == "systolic":
-        raise not_ported("the systolic conv engine",
-                         "Queue 2 item 4: the systolic conv kernel")
-    if spec is None:
-        raise not_ported(f"float policies on the {path} engine",
-                         "Queue 2 item 2: the implicit kernel's float "
-                         "variants")
-    variant, base_bits = spec
+        if spec is None:
+            variant, base_bits = "native", 7
+            if isinstance(w, QWeight):
+                w = dequantize_weight(w)
+        else:
+            variant, base_bits = spec
+        return conv2d_systolic(x, w, stride=stride, padding=padding,
+                               variant=variant, base_bits=base_bits,
+                               bias=bias, activation=activation)
     if path == "implicit":
+        if spec is None:
+            pv = getattr(policy, "value", policy)
+            variant, base_bits = ("native" if pv == "fp32" else pv), 7
+        else:
+            variant, base_bits = spec
         return conv2d_implicit(x, w, stride=stride, padding=padding,
                                block=block, variant=variant,
                                base_bits=base_bits, bias=bias,
                                activation=activation, pool=pool,
                                quantize_next=quantize_next)
     if path == "winograd":
+        variant, base_bits = spec
         return conv2d_winograd(x, w, stride=stride, padding=padding,
                                variant=variant, base_bits=base_bits,
                                bias=bias, activation=activation)

@@ -12,6 +12,11 @@ engines, not a measurement:
   covers 16 pooled pixels (64 conv pixels).  A source: the compact NHWC
   input (f32, or the handoff's padded int16 plus its cell-scale grid) and
   the per-patch scales.
+* ``systolic`` (``csrc/systolic_conv.cu``): the implicit kernel's tiles.
+  Under the integer variants the input is quantized per sample first (an
+  abs-max read and a quantize read of the f32 input, an int16 write), and
+  the kernel re-reads the int16 map per Cout tile; ``native`` re-reads the
+  f32 input.  The (n, cout) scale product rides along.
 * ``winograd`` (``csrc/winograd.cu``): 32 tiles (flattened over the batch)
   x 64 output channels per block; the A source is the NHWC input plus the
   tile scales, the weights are the two int16 transformed planes (16
@@ -19,6 +24,9 @@ engines, not a measurement:
 * ``im2col``: ``F.unfold`` writes the f32 patch matrix, the quantizer reads
   it and writes int16, and the limb GEMM (64 x 64 tiles) re-reads that per
   Cout tile.
+
+The float variants (``native``, ``bf16x3``, ``bf16x6``) read f32 inputs and
+f32 weights and have no activation scales.
 
 Outputs and the PyTorch passes after the kernel: the kernel writes its f32
 output (the pooled map under ``pool``/``pool_quant``); ReLU is one
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 #: The kernels' own tiles.
 IMPLICIT_TILE = (64, 64)          # output pixels, output channels
+SYSTOLIC_TILE = (64, 64)          # output pixels, output channels
 IMPLICIT_POOLED_PIXELS = 16       # pooled pixels per implicit block
 WINOGRAD_TILE = (32, 64)          # Winograd tiles, output channels
 GEMM_TILE = (64, 64)              # limb GEMM rows, columns
@@ -85,6 +94,16 @@ def conv_hbm_bytes(path: str, *, kh, kw, stride, h, cin, cout, variant,
             m_tiles = n * _cdiv(ho * wo, IMPLICIT_TILE[0])
         scales = m * 4 if integer and not handoff_in else 0
         return ((x_bytes + scales) * cout_tiles + w_bytes * m_tiles + tail)
+    if path == "systolic":
+        if fusion not in ("none", "bias_relu") or handoff_in:
+            raise ValueError("the systolic engine fuses bias and ReLU only")
+        cout_tiles = _cdiv(cout, SYSTOLIC_TILE[1])
+        m_tiles = n * _cdiv(ho * wo, SYSTOLIC_TILE[0])
+        if not integer:
+            return x_bytes * cout_tiles + w_bytes * m_tiles + tail
+        x16 = n * h * h * cin * 2
+        return (2 * x_bytes + x16 + x16 * cout_tiles + w_bytes * m_tiles
+                + n * cout * 4 + tail)
     if path == "winograd":
         th, tw = _cdiv(ho, 2), _cdiv(wo, 2)
         cout_tiles = _cdiv(cout, WINOGRAD_TILE[1])

@@ -8,10 +8,11 @@ sources and flags so a stale library is never loaded.  :func:`build` starts
 one ``nvcc`` per source, all at once.
 
 ``-fmad=false`` keeps the compiler from contracting a multiply and an add
-into an FMA anywhere; the one place the reference's arithmetic IS an FMA
-(the dequant-plus-bias epilogue, see ``csrc/limb_tile.cuh``) writes
-``__fmaf_rn`` explicitly.  ``--use_fast_math`` is never used: it would turn
-the quantizer's IEEE division into an approximation.
+into an FMA anywhere; where the arithmetic IS an FMA -- the integer
+kernels' dequant-plus-bias epilogue (``csrc/limb_tile.cuh``) and every
+multiply-add of the float kernels (``csrc/float_tile.cuh``) -- the source
+writes ``__fmaf_rn`` explicitly.  ``--use_fast_math`` is never used: it
+would turn the quantizer's IEEE division into an approximation.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that the serving path went through
@@ -44,10 +45,13 @@ BUILD_DIR = PKG / "_build"
 #: Library name -> CUDA source; every source includes the shared headers.
 SOURCES = {
     "kom_matmul": "kom_matmul.cu",
+    "bf16_matmul": "bf16_matmul.cu",
     "implicit_conv": "implicit_conv.cu",
+    "implicit_conv_float": "implicit_conv_float.cu",
+    "systolic_conv": "systolic_conv.cu",
     "winograd": "winograd.cu",
 }
-HEADERS = ("limb_tile.cuh",)
+HEADERS = ("limb_tile.cuh", "float_tile.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

@@ -1,9 +1,9 @@
-"""Implicit-GEMM integer conv: schedules, CUDA kernel wrapper, plain versions.
+"""Implicit-GEMM conv: schedules, CUDA kernel wrappers, plain versions.
 
 Replaces the TPU kernel ``repro/kernels/conv2d/implicit_gemm.py:
-_implicit_kernel`` (``conv2d_implicit_raw``) in its integer variants.  The
-GEMM is M = output pixels, K = kh*kw*cin, N = cout, with no patch matrix in
-device memory.  Three variants share one CUDA source
+_implicit_kernel`` (``conv2d_implicit_raw``).  The GEMM is M = output
+pixels, K = kh*kw*cin, N = cout, with no patch matrix in device memory.
+Three integer variants share one CUDA source
 (``repro_torch/csrc/implicit_conv.cu``), each with its plain PyTorch
 version here:
 
@@ -23,7 +23,18 @@ version here:
   tap's cell scale (exact), added into the f32 sum -- chunk outer, taps
   inner; the epilogue is ``fma(sum, s_ch, b)``.
 
-The float variants of the TPU kernel are not ported yet (ROADMAP.md).
+The float variants ``native``, ``bf16x3`` and ``bf16x6`` with the bias
+epilogue (:func:`conv2d_implicit_float_raw`) run
+``repro_torch/csrc/implicit_conv_float.cu``: f32 input gathered from NHWC,
+each value split once per tile into bf16 limbs, the pairs of the TPU
+kernel's ``_BF16_PAIRS`` as exact bf16 products into f32 partial sums.
+Their plain version (:func:`conv2d_implicit_float_plain`) is the port of
+the reference's float mirror ``_stream_conv_float`` -- per-tap dots,
+native f32 or bf16 limb passes -- with every product summed exactly
+(:func:`~repro_torch.core.karatsuba.schedule_dot`) and rounded once, so
+the kernel differs from it by its own f32 accumulation error alone.  The
+systolic engine's ``native`` variant is the same function and runs the
+same kernel, counted under its own name.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.karatsuba import schedule_dot
 from repro_torch.core.substrate import (dequant_epilogue, kom_qmax,
                                         limb_partials, limb_recombine,
                                         quantize_values)
@@ -40,6 +52,8 @@ from repro_torch.kernels import build
 from .conv2d import int_accum_bound, limb_term_bound
 
 INT_VARIANTS = ("karatsuba", "schoolbook")
+#: Float variants -> bf16 passes per product (1: native f32 FMAs).
+FLOAT_PASSES = {"native": 1, "bf16x3": 3, "bf16x6": 6}
 
 NAME = "implicit_conv"
 #: Launch-counter names of the three variants (one library).
@@ -48,6 +62,11 @@ POOL_NAME, HANDOFF_NAME = "implicit_conv_pool", "implicit_conv_handoff"
 KERNEL_POOLS = ((2, 2),)
 _ARGTYPES = {"implicit_conv_launch": [ctypes.c_void_p] * 7
              + [ctypes.c_int] * 20 + [ctypes.c_void_p]}
+#: The float variants' library and each variant's launch-counter name.
+FLOAT_LIB = "implicit_conv_float"
+FLOAT_NAMES = {v: f"implicit_conv_{v}" for v in FLOAT_PASSES}
+_FLOAT_ARGTYPES = {"implicit_conv_float_launch": [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 13 + [ctypes.c_void_p]}
 
 
 def max_cin_block(kh: int, kw: int, *, variant: str, base_bits: int) -> int:
@@ -334,3 +353,84 @@ def conv2d_implicit_handoff_raw(q, grid, w_vals, wscale, bias=None, *,
          int(variant == "karatsuba"), int(pool is not None), 1, hp, wp,
          build.stream_ptr(qv)),
         out, HANDOFF_NAME)
+
+
+def _check_float(x, w, bias, stride, out_hw, variant):
+    if variant not in FLOAT_PASSES:
+        raise ValueError(f"float variants only, got {variant!r}")
+    if x.shape[3] != w.shape[2]:
+        raise ValueError(f"weight cin {w.shape[2]} != input cin {x.shape[3]}")
+    if bias is not None and tuple(bias.shape) != (w.shape[3],):
+        raise ValueError("bias must have shape (cout,)")
+    if stride < 1 or min(out_hw) < 0:
+        raise ValueError(f"bad stride {stride} or output {out_hw}")
+
+
+def conv2d_implicit_float_plain(x, w, bias=None, *, stride: int, pads: tuple,
+                                out_hw: tuple, variant: str) -> torch.Tensor:
+    """The float variants' function in PyTorch, on any device.
+
+    The reference's ``_stream_conv_float``: per-tap strided slices of the
+    zero-padded input, one dot per tap -- native f32 products or the 3 or 6
+    bf16 limb passes -- summed over the taps; here every sum is exact (f64,
+    :func:`~repro_torch.core.karatsuba.schedule_dot`), rounded once to f32,
+    then ``+ bias`` in f32 as the kernel's epilogue adds it.
+    """
+    _check_float(x, w, bias, stride, out_hw, variant)
+    n, h, wd, _ = x.shape
+    kh, kw = w.shape[:2]
+    ho, wo = out_hw
+    pad_t, pad_l = pads
+    need_h, need_w = (ho - 1) * stride + kh, (wo - 1) * stride + kw
+    xp = F.pad(x.to(torch.float32),
+               (0, 0, pad_l, max(need_w - wd - pad_l, 0),
+                pad_t, max(need_h - h - pad_t, 0)))
+    out = None
+    for dy in range(kh):
+        for dx in range(kw):
+            rows = xp[:, dy:dy + (ho - 1) * stride + 1:stride,
+                      dx:dx + (wo - 1) * stride + 1:stride]
+            d = schedule_dot(rows, w[dy, dx], passes=FLOAT_PASSES[variant])
+            out = d if out is None else out + d
+    out = out.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out
+
+
+def conv2d_implicit_float_raw(x, w, bias=None, *, stride: int, pads: tuple,
+                              out_hw: tuple, variant: str,
+                              counter: str | None = None) -> torch.Tensor:
+    """Float implicit-GEMM conv with the bias epilogue.
+
+    ``x`` (n, h, w, cin) f32 UNPADDED NHWC (``pads`` = (top, left);
+    bottom/right follow from ``out_hw``); ``w`` (kh, kw, cin, cout) f32;
+    ``bias`` (cout,) or None; ``variant`` ``native``, ``bf16x3`` or
+    ``bf16x6``.  Returns (n, ho, wo, cout) f32.  CUDA tensors run the
+    kernel (each variant counts its own launches, under ``counter`` when
+    given: the systolic engine's ``native`` calls), CPU tensors the plain
+    version.
+    """
+    kw_ = dict(stride=stride, pads=pads, out_hw=out_hw, variant=variant)
+    if not build.use_kernel(x):
+        return conv2d_implicit_float_plain(x, w, bias, **kw_)
+    _check_float(x, w, bias, stride, out_hw, variant)
+    dev = x.device
+    f32 = lambda t: None if t is None else \
+        t.to(device=dev, dtype=torch.float32).contiguous()
+    xc, wc, bs = f32(x), f32(w), f32(bias)
+    n, h, wd, cin = xc.shape
+    kh, kw, _, cout = wc.shape
+    ho, wo = out_hw
+    out = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build.library(FLOAT_LIB, _FLOAT_ARGTYPES)
+    code = lib.implicit_conv_float_launch(
+        xc.data_ptr(), wc.data_ptr(), build.ptr(bs), out.data_ptr(), n, h,
+        wd, cin, cout, kh, kw, stride, pads[0], pads[1], ho, wo,
+        FLOAT_PASSES[variant], build.stream_ptr(xc))
+    name = counter or FLOAT_NAMES[variant]
+    build.check_launch(lib, code, name)
+    build.LAUNCHES[name] += 1
+    return out

@@ -1,3 +1,5 @@
-from .ops import kom_matmul_int, kom_matmul_int_plain
+from .ops import (bf16x3_matmul, bf16x3_matmul_plain, kom_matmul_int,
+                  kom_matmul_int_plain)
 
-__all__ = ["kom_matmul_int", "kom_matmul_int_plain"]
+__all__ = ["bf16x3_matmul", "bf16x3_matmul_plain", "kom_matmul_int",
+           "kom_matmul_int_plain"]

@@ -1,6 +1,7 @@
-"""The limb GEMM: CUDA kernel wrapper and its plain PyTorch version.
+"""The limb GEMM and the bf16-limb GEMM: CUDA kernel wrappers and their
+plain PyTorch versions.
 
-Replaces the TPU kernel ``repro/kernels/kom_matmul/kom_matmul.py:_int_kernel``
+The limb GEMM replaces the TPU kernel ``repro/kernels/kom_matmul/kom_matmul.py:_int_kernel``
 (``kom_matmul_int_raw``): an (m, k) x (k, n) integer GEMM whose int16
 operands are split into balanced int8 digits and multiplied in 3
 (Karatsuba) or 4 (schoolbook) int8 passes into three int32 accumulators,
@@ -11,6 +12,16 @@ the result leaves the kernel.  It carries the RGB stem's im2col GEMM and
 every FC layer of the integer serving path.
 
 The CUDA source is ``repro_torch/csrc/kom_matmul.cu``.
+
+The bf16-limb GEMM (:func:`bf16x3_matmul`) replaces the TPU kernel
+``repro/kernels/kom_matmul/kom_matmul.py:_bf16_kernel``
+(``bf16x3_matmul_raw``): an fp32-accurate f32 (m, k) x (k, n) product from
+3 or 4 bf16 limb passes, and here also the 3-limb, 6-pass schedule of
+``bf16x6``.  It carries the FC layers under the float emulation policies.
+Its plain version is :func:`~repro_torch.core.karatsuba.bf16xn_dot_general`
+(the same limbs and pairs, summed exactly and rounded once; the kernel
+differs from it by its own f32 accumulation error).  The CUDA source is
+``repro_torch/csrc/bf16_matmul.cu``.
 """
 from __future__ import annotations
 
@@ -18,14 +29,18 @@ import ctypes
 
 import torch
 
+from repro_torch.core.karatsuba import BF16XN_SCHEDULES, bf16xn_dot_general
 from repro_torch.core.substrate import (dequant_epilogue, limb_partials,
                                         limb_recombine)
 from repro_torch.kernels import build
 
 _ARGTYPES = {"kom_matmul_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_void_p]}
+_BF16_ARGTYPES = {"bf16_matmul_launch": [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 
 NAME = "kom_matmul"
+BF16_NAME = "bf16_matmul"
 
 
 def _check_args(a_q, b_q, variant, base_bits, row_scale, col_scale, bias):
@@ -102,4 +117,50 @@ def kom_matmul_int(a_q: torch.Tensor, b_q: torch.Tensor, *,
         int(variant == "karatsuba"), build.stream_ptr(a))
     build.check_launch(lib, code, NAME)
     build.LAUNCHES[NAME] += 1
+    return out
+
+
+def _check_bf16(a, b, passes):
+    if passes not in BF16XN_SCHEDULES:
+        raise ValueError(f"passes must be one of {sorted(BF16XN_SCHEDULES)}, "
+                         f"got {passes}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad GEMM shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+
+
+def bf16x3_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
+                        passes: int = 3) -> torch.Tensor:
+    """The bf16-limb GEMM's function in PyTorch, on any device: the same
+    limbs and pairs, their exact sum rounded once to f32."""
+    _check_bf16(a, b, passes)
+    return bf16xn_dot_general(a, b, passes=passes)
+
+
+def bf16x3_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                  passes: int = 3) -> torch.Tensor:
+    """fp32-accurate f32 (m, k) x (k, n) from bf16 limb passes.
+
+    ``passes``: 3 (AhBh + AhBl + AlBh), 4 (+ AlBl) or 6 (three limbs, the
+    ``bf16x6`` schedule).  Returns f32 (m, n).  CUDA tensors run the
+    kernel (any failure raises); CPU tensors run
+    :func:`bf16x3_matmul_plain`.
+    """
+    if not build.use_kernel(a):
+        return bf16x3_matmul_plain(a, b, passes=passes)
+    _check_bf16(a, b, passes)
+    dev = a.device
+    af = a.to(torch.float32).contiguous()
+    bf = b.to(device=dev, dtype=torch.float32).contiguous()
+    m, k = af.shape
+    n = bf.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = build.library(BF16_NAME, _BF16_ARGTYPES)
+    code = lib.bf16_matmul_launch(af.data_ptr(), bf.data_ptr(),
+                                  out.data_ptr(), m, n, k, passes,
+                                  build.stream_ptr(af))
+    build.check_launch(lib, code, BF16_NAME)
+    build.LAUNCHES[BF16_NAME] += 1
     return out

@@ -4,15 +4,22 @@
         --buckets 1,4,16 --requests 32 [--device cpu] [--reduced]
     python -m repro_torch.launch.serve --arch vgg16 --policy kom_int14 \\
         --explore --model-only --requant
+    python -m repro_torch.launch.serve --arch vgg16 --policy kom_int14 \\
+        --conv-path systolic
+    python -m repro_torch.launch.serve --arch vgg16 --policy bf16x3 \\
+        --conv-path implicit
 
 Runs on the GPU unless ``--device cpu`` is given (and refuses to start
 without one otherwise).  ``--reduced`` serves the CPU-test twin of the
 config (tiny widths); without it the model is served at full width.
 ``--explore --model-only [--requant]`` plans every conv layer with the
 port's cost model at launch (``--requant`` allows the ``pool_quant``
-handoff); ``--plan PATH`` serves a saved plan artifact.  The transformer
-archs, the multi-model dispatcher and fault injection of the reference
-launcher are not ported yet.
+handoff); ``--plan PATH`` serves a saved plan artifact.  ``--conv-path``
+pins ONE engine for every conv layer instead (it refuses ``--plan`` and
+``--explore``, and a policy the engine cannot run exactly, as the
+reference launcher does).  The transformer archs, the multi-model
+dispatcher and fault injection of the reference launcher are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.configs import CNN_ARCHS, get_config, reduced
 from repro_torch.core.precision import MatmulPolicy
+from repro_torch.core.substrate import validate_path_policy
 from repro_torch.device import resolve_device
 
 
@@ -84,7 +92,7 @@ def serve_cnn(cfg, args) -> int:
               f"({flr.error})")
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"[serve] {cfg.name}/{cfg.policy.value} on {where}: "
+    print(f"[serve] {cfg.name}/{cfg.policy.value}/{cfg.conv_path} on {where}: "
           f"{s['images_done']} images in {dt:.2f}s wall "
           f"({s['images_per_s']:.1f} img/s batched, "
           f"p50 latency {1e3 * s['latency_p50_s']:.1f} ms, "
@@ -108,6 +116,11 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the tiny-width twin of the config")
+    ap.add_argument("--conv-path", default="auto",
+                    choices=("auto", "im2col", "systolic", "implicit",
+                             "winograd"),
+                    help="pin one conv engine for every layer (default: "
+                         "the plan chain)")
     ap.add_argument("--plan", default=None,
                     help="serve a saved ExecutionPlan artifact "
                          "(repro_torch/tuned/plans/<backend>.json)")
@@ -125,7 +138,15 @@ def main(argv=None) -> int:
         ap.error("--explore and --plan are mutually exclusive")
     if (args.model_only or args.requant) and not args.explore:
         ap.error("--model-only and --requant go with --explore")
-    cfg = get_config(args.arch, policy=MatmulPolicy(args.policy))
+    cfg = get_config(args.arch, policy=MatmulPolicy(args.policy),
+                     conv_path=args.conv_path)
+    if cfg.conv_path != "auto" and (args.plan or args.explore):
+        ap.error(f"--conv-path {cfg.conv_path} pins ONE engine for every "
+                 "layer; --plan/--explore choose per layer -- drop one")
+    try:
+        validate_path_policy(cfg.conv_path, cfg.policy)
+    except ValueError as e:
+        ap.error(f"--conv-path {e}")
     if args.reduced:
         cfg = reduced(cfg)
     return serve_cnn(cfg, args)

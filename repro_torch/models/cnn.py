@@ -36,7 +36,7 @@ class CNNConfig:
     in_channels: int = 3
     n_classes: int = 1000
     policy: MatmulPolicy = MatmulPolicy.NATIVE_BF16
-    conv_path: str = "auto"   # auto | im2col | implicit | winograd
+    conv_path: str = "auto"   # auto | im2col | systolic | implicit | winograd
     family: str = "cnn"
 
     def replace(self, **kw) -> "CNNConfig":
@@ -208,7 +208,9 @@ def cnn_forward(params, cfg: CNNConfig, x: torch.Tensor, plan=None, *,
     ``cfg.conv_path == "auto"`` resolves the heuristic plan for the device
     ``x`` lives on.  Plan entries apply to layers on the cached-weight path
     and layers a plan does not cover fall back to auto dispatch, as in the
-    reference.
+    reference.  A pinned ``cfg.conv_path`` (e.g. ``"systolic"``, or
+    ``"implicit"`` under ``bf16x3``) sends EVERY conv, the stem included,
+    to that engine and ignores any plan.
 
     Entries with ``fusion`` "pool"/"pool_quant" fold the FOLLOWING maxpool
     (and the next layer's activation quantization) into the implicit conv's

@@ -8,10 +8,13 @@ The port of ``repro.serving.cnn_engine``:
   ``Expired``/``Failed`` results, retries.
 * **Quantize-once weights**: under the integer policies the float params
   become cached :class:`~repro_torch.core.substrate.QWeight` leaves once at
-  build; each step quantizes activations only, per row / patch / tile, so a
-  request's logits do not depend on its batch-mates or padding.
-* **Planned conv dispatch**: the ExecutionPlan is resolved once at build;
-  a fused plan (``pool``/``pool_quant`` entries, e.g. from
+  build; each step quantizes activations only, per row / patch / tile /
+  sample, so a request's logits do not depend on its batch-mates or
+  padding.  The float policies (``fp32``, ``bf16x3``, ``bf16x6``) serve the
+  float params as they are.
+* **Planned conv dispatch**: the ExecutionPlan is resolved once at build,
+  unless ``cfg.conv_path`` pins one engine for every layer (``systolic``,
+  ``implicit``, ...), which excludes a plan; a fused plan (``pool``/``pool_quant`` entries, e.g. from
   ``explore(cfg, model_only=True, requant=True)``) runs the implicit
   kernel's pooled epilogue and its int16 handoff between layers.
 * **OOM degrade ladder**: drop the largest bucket, then reroute the plan to
@@ -34,7 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.substrate import not_ported
+from repro_torch.core.substrate import not_ported, validate_path_policy
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNNConfig, cnn_forward, cnn_quantize_params
 from repro_torch.serving.scheduler import (EngineDownError,
@@ -86,6 +89,8 @@ class CNNServeEngine:
             raise ValueError(
                 f"explicit conv_path={cfg.conv_path!r} and an ExecutionPlan "
                 "are mutually exclusive -- drop one")
+        else:
+            validate_path_policy(cfg.conv_path, cfg.policy)
         self.health = "healthy"
         self.degrade_log: List[str] = []
         self._fallback_plan_active = False

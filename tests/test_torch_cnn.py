@@ -223,6 +223,8 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.serving.cnn_engine, repro_torch.launch.serve,"
             " repro_torch.convert, repro_torch.core.planner,"
             " repro_torch.core.tuning, repro_torch.analysis.roofline,"
+            " repro_torch.core.karatsuba,"
+            " repro_torch.analysis.float_tolerance,"
             " chip_smoke;"
             " bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
             " or m.startswith(('jax.', 'repro.'))];"

@@ -349,7 +349,7 @@ def test_cost_models_count_like_the_reference_and_price_the_fusions():
     assert r["memory_s"] == pytest.approx(by["bias_relu"] / 3.35e12)
     assert r["roofline_s"] == max(r["compute_s"], r["memory_s"])
     with pytest.raises(ValueError):
-        tuning.conv_hbm_bytes("systolic", **kw)
+        tuning.conv_hbm_bytes("unknown", **kw)
 
 
 def test_plan_artifacts_round_trip_and_refuse_foreign_stamps(tmp_path):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Proof on an NVIDIA GPU that the port's AlexNet and VGG16 paths run.
+"""Proof on an NVIDIA GPU that the port's AlexNet, VGG16 and granite-3-2b
+paths run.
 
     python3 chip_smoke.py
 
@@ -66,8 +67,35 @@ Phases, each fatal on failure:
    can move its low bf16 limb by 2^7 times more, so ulp-level differences
    between layers grow to the size of the schedule's own error; phase 7
    holds the schedule itself;
-10. print the card line, a ``kernels`` JSON line (launches: the serving
-    runs and the fp32 yardstick forward, each counted from 0) and, last,
+10. hold the flash-attention kernel against its plain version on the card
+    at one full-width granite-3-2b prefill layer (b 4, hq 32, hkv 8, sq =
+    skv = 2048, dh 64, causal) in f32 and bf16, at sq 256 with q_offset
+    1792, with window 512 and at sq = skv = 1000 (padded); the flash-decode
+    kernel at b 8, hq 32, hkv 8, S 4096, dh 64, pos 0/1000/4095 (f32, and
+    bf16 at 4095) and S 4000 (padded).  f32 within ATTN_TOL_F32 with the
+    mutant plain version (causal ``>`` for ``>=``; decode ``<`` for
+    ``<=``) required to miss it, bf16 within ATTN_TOL_BF16; timed beside
+    ``F.scaled_dot_product_attention`` with the same mask (a yardstick the
+    port never calls) and the ``analysis/roofline`` bound; then the decode
+    op's own run (its entry point, no model calls it);
+11. full-width granite-3-2b (40 layers, random weights, seed 0): the
+    prefill step (``make_prefill_step``, ``use_flash_kernel=True``) on 4 x
+    2048 tokens under ``native_bf16`` -- 40 flash-attention launches per
+    forward, prefill tokens/s, a profile -- and under ``fp32`` (TF32 off)
+    the logits within PREFILL_TOL_FP32 of the same forward inside
+    ``build.plain_versions()``;
+12. serve full-width granite-3-2b through ``ServeEngine`` (slots 4,
+    max_len 512, 8 requests by the launcher's prompt rule, max_new 12)
+    under ``native_bf16`` and ``kom_int14``: all 8 done, decode tokens/s,
+    p50/p95 engine-step time, under ``kom_int14`` 281 limb-GEMM launches
+    per serve_step, two requests re-served alone with the same greedy
+    tokens (the batched-vs-solo max |d logit| printed), a decode profile;
+13. reduced granite-3-2b (flash kernel on) under ``fp32`` and
+    ``kom_int14``: the forward and four decode steps on the card within
+    REDUCED_TOL_FP32 / REDUCED_TOL_KOM of the CPU plain versions;
+14. print the card line, a ``kernels`` JSON line (launches: the serving
+    runs, the fp32 yardstick forward, the granite prefill forward and the
+    decode op's run, each counted from 0) and, last,
     ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -91,11 +119,23 @@ FLOAT_TOL = 1e-6
 FORWARD_TOL_BF16X3 = 1e-5
 #: Each float schedule -> the neighbouring one its check must tell it from.
 NEIGHBOUR = {"native": "bf16x3", "bf16x3": "native", "bf16x6": "bf16x3"}
+#: The attention kernels against their plain versions: f32 outputs (O(1)
+#: values, sums in another order) and bf16 outputs (one bf16 ulp).
+ATTN_TOL_F32 = 2e-5
+ATTN_TOL_BF16 = 2e-2
+#: Full-width granite fp32 prefill, flash kernel vs plain version, of max
+#: |logit|: 40 layers carry the kernels' f32 reordering through the stack.
+PREFILL_TOL_FP32 = 1e-4
+#: Reduced granite, card vs CPU, of max |logit|: fp32 (sums in another
+#: order), kom_int14 (an ulp can move a 14-bit quantization level).
+REDUCED_TOL_FP32 = 1e-5
+REDUCED_TOL_KOM = 2e-3
 #: The JSON line's kernels: each launch counter of the build's wrappers.
 KERNELS = ("kom_matmul", "implicit_conv", "implicit_conv_pool",
            "implicit_conv_handoff", "winograd", "systolic_conv",
            "systolic_conv_native", "implicit_conv_native",
-           "implicit_conv_bf16x3", "implicit_conv_bf16x6", "bf16_matmul")
+           "implicit_conv_bf16x3", "implicit_conv_bf16x6", "bf16_matmul",
+           "flash_attention", "flash_decode")
 _IMPLICIT = "src/repro/kernels/conv2d/implicit_gemm.py:131"
 #: Where each ported kernel came from (the Pallas kernel's definition).
 REPLACES = {
@@ -110,6 +150,9 @@ REPLACES = {
     "implicit_conv_bf16x3": _IMPLICIT,
     "implicit_conv_bf16x6": _IMPLICIT,
     "bf16_matmul": "src/repro/kernels/kom_matmul/kom_matmul.py:99",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:26",
+    "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:25",
 }
 SOURCES = {
     "kom_matmul": "repro_torch/csrc/kom_matmul.cu",
@@ -123,6 +166,8 @@ SOURCES = {
     "implicit_conv_bf16x3": "repro_torch/csrc/implicit_conv_float.cu",
     "implicit_conv_bf16x6": "repro_torch/csrc/implicit_conv_float.cu",
     "bf16_matmul": "repro_torch/csrc/bf16_matmul.cu",
+    "flash_attention": "repro_torch/csrc/flash_attention.cu",
+    "flash_decode": "repro_torch/csrc/flash_decode.cu",
 }
 #: Full-width VGG16 (h, cin, cout) of each pool-followed conv (pooled
 #: variant) and each conv fed by a pool_quant handoff (handoff variant).
@@ -1009,23 +1054,30 @@ def phase_serve_vgg16_bf16x3(torch, card: str, params, ref, ref_imgs
 
 
 def phase_profile(torch, eng, batch) -> None:
-    """Where one 16-image serving step (host batch in, host logits out)
-    spends its time: its wall clock, and from ``torch.profiler`` the device
-    time of every kernel and copy by name; device busy = the union of their
-    intervals on the device timeline, idle = the profiled step's wall clock
+    """Where one serving step (host batch in, host logits out) spends its
+    time (:func:`profile_step`)."""
+    eng.run_batch(batch)
+    profile_step(torch, lambda: eng.run_batch(batch),
+                 f"one {len(batch)}-image step")
+
+
+def profile_step(torch, fn, what: str) -> None:
+    """Where one call of ``fn`` (which must end in a host sync) spends its
+    time: its wall clock, and from ``torch.profiler`` the device time of
+    every kernel and copy by name; device busy = the union of their
+    intervals on the device timeline, idle = the profiled call's wall clock
     minus busy (an upper bound: the profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.run_batch(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run_batch(batch)
+    fn()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run_batch(batch)  # ends in a copy to the host: synchronized
+        fn()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0)
     spans, by_name = [], {}
     for e in prof.events():
@@ -1048,12 +1100,472 @@ def phase_profile(torch, eng, batch) -> None:
             busy_us += t1_us - end
             end = t1_us
     busy = busy_us / 1e3
-    log(f"[profile] one {len(batch)}-image step: wall {wall_ms:.3f} ms "
+    log(f"[profile] {what}: wall {wall_ms:.3f} ms "
         f"({prof_wall_ms:.3f} ms profiled), device busy {busy:.3f} ms, "
-        f"idle {100 * (1 - busy / prof_wall_ms):.1f}% of the profiled step")
+        f"idle {100 * (1 - busy / prof_wall_ms):.1f}% of the profiled call")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
             :14]:
         log(f"[profile]   {us / 1e3:9.4f} ms  x{n:<3d} {name[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-13: the attention kernels and full-width granite-3-2b.
+# ---------------------------------------------------------------------------
+
+FA_MOD = "repro_torch.kernels.flash_attention.flash_attention"
+FD_MOD = "repro_torch.kernels.flash_decode.flash_decode"
+
+
+class mutated:
+    """``module.name`` replaced by ``make(original)`` inside the block (the
+    mutant controls: a plain version with its mask changed)."""
+
+    def __init__(self, module: str, name: str, make):
+        import importlib
+        self.mod, self.name, self.make = (importlib.import_module(module),
+                                          name, make)
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.make(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def strict_causal(orig):
+    """Causal ``>`` for ``>=``: the diagonal key masked."""
+    def live(q_pos, k_pos, *, causal, window):
+        m = orig(q_pos, k_pos, causal=causal, window=window)
+        return m & (q_pos[:, None] != k_pos[None, :]) if causal else m
+    return live
+
+
+def before_pos(orig):
+    """Decode ``<`` for ``<=``: the key at ``pos`` masked."""
+    return lambda k_pos, pos: k_pos < pos
+
+
+def sdpa_ms(torch, q, k, v, mask) -> float:
+    """Yardstick: one ``F.scaled_dot_product_attention`` call with the same
+    boolean mask (True = attend), GQA by ``enable_gqa``; never called by
+    the port."""
+    import torch.nn.functional as F
+
+    try:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), iters=10)
+    except (TypeError, RuntimeError) as e:  # no GQA in this build/backend
+        log(f"  sdpa without enable_gqa ({e}): K/V repeated first")
+        g = q.shape[1] // k.shape[1]
+        k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=10)
+
+
+def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
+                   window=None, q_offset=0, row=False) -> None:
+    """The flash-attention kernel against its plain version on the card:
+    f32 within ATTN_TOL_F32 with the strict-causal mutant required to miss
+    it, bf16 within ATTN_TOL_BF16; timed beside SDPA and the roofline."""
+    from repro_torch.analysis.roofline import attention_roofline
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    run = lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+    got = run()
+    with build.plain_versions():
+        want = run()
+    f32 = q.dtype == torch.float32
+    tol = ATTN_TOL_F32 if f32 else ATTN_TOL_BF16
+    err = float((got.float() - want.float()).abs().max())
+    miss = None
+    if f32:
+        with mutated(FA_MOD, "live_mask", strict_causal), \
+                build.plain_versions():
+            miss = float((got - run()).abs().max())
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = (pos >= kp) if causal else torch.ones_like(pos >= kp)
+    if window is not None:
+        mask &= (pos - kp) < window
+    ms = cuda_ms(run, iters=10)
+    with build.plain_versions():
+        plain_ms = cuda_ms(run, iters=3, warmup=1)
+    lib_ms = sdpa_ms(torch, q, k, v, mask)
+    rf = attention_roofline(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, dh=dh,
+                            causal=causal, window=window, q_offset=q_offset,
+                            itemsize=q.element_size())
+    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], "fp32")
+    log(f"[attention] flash_attention {label} {str(q.dtype)[6:]}: "
+        f"max_abs_err={err} (tol {tol}) mutant_err={miss} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%)")
+    if not (err <= tol and torch.isfinite(got.float()).all()) or \
+            (miss is not None and not miss > tol):
+        raise SystemExit(f"flash_attention {label}: kernel vs plain "
+                         f"{err} (tol {tol}), mutant {miss}")
+    if row:
+        summary["flash_attention"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def decode_case(torch, build, summary, label, q, k, v, pos, row=False):
+    """The flash-decode kernel against its plain version on the card (same
+    tolerances; the ``<`` mutant must miss for f32)."""
+    from repro_torch.analysis.roofline import decode_attention_roofline
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    run = lambda: flash_decode(q, k, v, pos)
+    got = run()
+    with build.plain_versions():
+        want = run()
+    f32 = q.dtype == torch.float32
+    tol = ATTN_TOL_F32 if f32 else ATTN_TOL_BF16
+    err = float((got.float() - want.float()).abs().max())
+    miss = None
+    if f32:
+        with mutated(FD_MOD, "valid_keys", before_pos), \
+                build.plain_versions():
+            miss = float((got - run()).abs().max())
+    b, hq, _, dh = q.shape
+    hkv, S = k.shape[1], k.shape[2]
+    ms = cuda_ms(run, iters=10)
+    with build.plain_versions():
+        plain_ms = cuda_ms(run, iters=3, warmup=1)
+    mask = (torch.arange(S, device=q.device) <= pos)[None, :]
+    lib_ms = sdpa_ms(torch, q, k, v, mask)
+    rf = decode_attention_roofline(b=b, hq=hq, hkv=hkv, S=S, dh=dh, pos=pos,
+                                   itemsize=q.element_size())
+    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], "fp32")
+    log(f"[attention] flash_decode {label} {str(q.dtype)[6:]}: "
+        f"max_abs_err={err} (tol {tol}) mutant_err={miss} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%)")
+    if not (err <= tol and torch.isfinite(got.float()).all()) or \
+            (miss is not None and not miss > tol):
+        raise SystemExit(f"flash_decode {label}: kernel vs plain {err} "
+                         f"(tol {tol}), mutant {miss}")
+    if row:
+        summary["flash_decode"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_compare_attention(torch) -> tuple:
+    """Phase 10.  Returns (summary rows, launches of the decode op's own
+    run: its entry point, called once per ``pos`` with the counts reset
+    just before)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    summary = {}
+    q, k, v = rnd(4, 32, 2048, 64), rnd(4, 8, 2048, 64), rnd(4, 8, 2048, 64)
+    attention_case(torch, build, summary, "prefill 4x2048", q, k, v)
+    attention_case(torch, build, summary, "prefill 4x2048",
+                   *(t.bfloat16() for t in (q, k, v)), row=True)
+    attention_case(torch, build, summary, "sq256@1792", q[:, :, -256:], k, v,
+                   q_offset=1792)
+    attention_case(torch, build, summary, "window512", q, k, v, window=512)
+    attention_case(torch, build, summary, "padded 1000", q[:, :, :1000],
+                   k[:, :, :1000], v[:, :, :1000])
+    del q, k, v
+    q, kc, vc = rnd(8, 32, 1, 64), rnd(8, 8, 4096, 64), rnd(8, 8, 4096, 64)
+    for pos in (0, 1000):
+        decode_case(torch, build, summary, f"S4096 pos{pos}", q, kc, vc, pos)
+    decode_case(torch, build, summary, "S4096 pos4095", q, kc, vc, 4095,
+                row=True)
+    decode_case(torch, build, summary, "S4096 pos4095",
+                *(t.bfloat16() for t in (q, kc, vc)), 4095)
+    decode_case(torch, build, summary, "S4000 pos3999 (padded)", q,
+                kc[:, :, :4000], vc[:, :, :4000], 3999)
+    build.reset_launches()
+    for pos in (0, 1000, 4095):
+        out = flash_decode(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    log(f"[attention] the decode op's own run (pos 0, 1000, 4095): "
+        f"launches {launches}, output {tuple(out.shape)}")
+    if launches != {"flash_decode": 3}:
+        raise SystemExit(f"flash_decode op launches {launches}")
+    return summary, launches
+
+
+#: granite-3-2b's projections (k, n) with their count per serve_step: q,
+#: k, v, o, gate, up, down in each of 40 layers, then the tied head.
+GRANITE_GEMMS = (("q", (2048, 2048), 40), ("k", (2048, 512), 40),
+                 ("v", (2048, 512), 40), ("o", (2048, 2048), 40),
+                 ("gate", (2048, 8192), 40), ("up", (2048, 8192), 40),
+                 ("down", (8192, 2048), 40), ("head", (2048, 49408), 1))
+
+
+def phase_compare_lm_gemm(torch) -> None:
+    """Phase 10b: the limb GEMM at granite-3-2b's decode shapes under
+    kom_int14 (m = 4 slots): exact against its plain version, timed beside
+    its three int8 passes through ``torch._int_mm``; the per-serve_step
+    totals weight each shape by its count."""
+    from repro_torch.core.substrate import kom_qmax
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kom_matmul import kom_matmul_int
+
+    gen = torch.Generator().manual_seed(5)
+    qmax, m = kom_qmax(7), 4
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for label, (k, n), count in GRANITE_GEMMS:
+        a = torch.randint(-qmax, qmax + 1, (m, k), generator=gen).to(
+            torch.int16).cuda()
+        b = torch.randint(-qmax, qmax + 1, (k, n), generator=gen).to(
+            torch.int16).cuda()
+        rs = (torch.rand(m, generator=gen) * 1e-3 + 1e-4).cuda()
+        cs = (torch.rand(n, generator=gen) * 1e-3 + 1e-4).cuda()
+        run = lambda a=a, b=b, rs=rs, cs=cs: kom_matmul_int(
+            a, b, variant="karatsuba", base_bits=7, row_scale=rs,
+            col_scale=cs)
+        ops = 2.0 * m * k * n * 3
+        nbytes = 2 * (m * k + k * n) + 4 * (m + n + m * n)
+        lib_ms = int_mm_passes_ms(torch, a, b, "karatsuba", 7)
+        err, ms, plain_ms = compare_call(torch, build, "kom_int14",
+                                         "kom_matmul", f"granite {label}",
+                                         run, ops, nbytes, lib_ms)
+        b_ms, _ = bound_ms(ops, nbytes, "int8")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", b_ms)):
+            tot[key] = None if v is None or tot[key] is None \
+                else tot[key] + count * v
+    log("[compare] kom_matmul per granite serve_step (281 calls, m = 4): "
+        + ", ".join(f"{k} {v if v is None else round(v, 4)}"
+                    for k, v in tot.items()))
+
+
+def granite_params(torch):
+    """Full-width granite-3-2b float params on the card (seed 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("granite-3-2b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[granite] {n / 1e9:.3f} B params (f32) on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_prefill(torch, card: str, params) -> dict:
+    """Phase 11: the prefill step with the flash kernel, batch 4 x 2048."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch.step_fns import make_prefill_step
+
+    cfg = get_config("granite-3-2b", use_flash_kernel=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 2048)).astype(np.int64)).cuda()
+    batch = {"tokens": tokens}
+    step = make_prefill_step(cfg)
+    step(params, batch)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    check_launches("prefill", launches, {"flash_attention": cfg.n_layers})
+    if logits.shape != (4, 2048, cfg.padded_vocab) or \
+            not torch.isfinite(logits).all():
+        raise SystemExit(f"[prefill] bad logits {tuple(logits.shape)}")
+    del logits
+    n_it = 3
+    t0 = time.perf_counter()
+    for _ in range(n_it):
+        step(params, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_it
+    log(f"[prefill] granite-3-2b/native_bf16 flash on {card}: "
+        f"{1e3 * dt:.1f} ms per 4x2048 prefill, {4 * 2048 / dt:.0f} "
+        "tokens/s")
+    profile_step(torch, lambda: step(params, batch).sum().item(),
+                 "one 4x2048 native_bf16 prefill step")
+    f32 = cfg.replace(policy=MatmulPolicy.FP32, compute_dtype="float32")
+    step32 = make_prefill_step(f32)
+    got = step32(params, batch)
+    with build.plain_versions():
+        want = step32(params, batch)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"[prefill] fp32 (TF32 off): flash kernel vs plain-version forward "
+        f"max rel err {rel:.3e} (tol {PREFILL_TOL_FP32})")
+    if not rel <= PREFILL_TOL_FP32:
+        raise SystemExit(f"[prefill] fp32 logits off by {rel}")
+    return launches
+
+
+class _Recorder:
+    """Wraps a ServeEngine to record each request's logits rows and each
+    engine step's wall time."""
+
+    def __init__(self, eng):
+        self.rows, self.step_s, self.eng = {}, [], eng
+        self._pending = []
+        group, sample = eng._step_group, eng._sample
+
+        def step_group(pos, slot_ids, tok, suspect=False):
+            self._pending = list(slot_ids)
+            return group(pos, slot_ids, tok, suspect)
+
+        def sample_row(row, temperature):
+            uid = eng.active[self._pending.pop(0)].uid
+            self.rows.setdefault(uid, []).append(row.copy())
+            return sample(row, temperature)
+
+        eng._step_group, eng._sample = step_group, sample_row
+
+    def run(self, torch):
+        while self.eng.has_work():
+            t0 = time.perf_counter()
+            self.eng.step()
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - t0)
+        return self.eng.done
+
+
+def phase_serve_lm(torch, card: str, params, policy: str) -> dict:
+    """Phase 12: full-width granite-3-2b through ServeEngine: slots 4,
+    max_len 512, 8 requests by the launcher's prompt rule, max_new 12; two
+    requests re-served alone must give the same greedy tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    tag = f"serve_lm {policy}"
+    cfg = get_config("granite-3-2b", policy=MatmulPolicy(policy))
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, slots=4, max_len=512, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{tag}] engine built in {time.perf_counter() - t0:.2f}s")
+    rng = np.random.default_rng(0)
+    prompts = []
+    for _ in range(8):
+        plen = int(rng.integers(3, 9))
+        prompts.append(rng.integers(0, cfg.vocab_size,
+                                    (plen,)).astype(np.int32))
+    rec = _Recorder(eng)
+    build.reset_launches()
+    n_decode = [0]
+    decode = eng._decode
+
+    def counted(*a):
+        n_decode[0] += 1
+        return decode(*a)
+    eng._decode = counted
+    t0 = time.perf_counter()
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=12))
+    done = rec.run(torch)
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts()
+    if sorted(done) != list(range(8)) or \
+            any(len(done[u].out_tokens) != 12 for u in done):
+        raise SystemExit(f"[{tag}] served {len(done)} of 8")
+    # under kom_int14 each serve_step runs 7 limb GEMMs per layer + the head
+    want = {"kom_matmul": n_decode[0] * (7 * cfg.n_layers + 1)} \
+        if policy == "kom_int14" else {}
+    check_launches(tag, launches, want)
+    n_tok = sum(len(done[u].out_tokens) for u in done)
+    st = np.array(rec.step_s)
+    log(f"[{tag}] granite-3-2b/{policy} on {card}: 8/8 requests, {n_tok} "
+        f"tokens in {wall:.2f}s ({n_tok / wall:.1f} decode tok/s), "
+        f"{n_decode[0]} serve_steps, {len(st)} engine steps: p50 "
+        f"{1e3 * np.percentile(st, 50):.2f} ms, p95 "
+        f"{1e3 * np.percentile(st, 95):.2f} ms")
+    batched = {u: list(done[u].out_tokens) for u in (0, 1)}
+    rows = {u: np.stack(rec.rows[u]) for u in (0, 1)}
+    for uid in (0, 1):
+        eng.submit(Request(uid=100 + uid, prompt=prompts[uid],
+                           max_new_tokens=12))
+        rec.run(torch)
+        solo = eng.done[100 + uid].out_tokens
+        d = float(np.abs(np.stack(rec.rows[100 + uid]) - rows[uid]).max())
+        log(f"[{tag}] req {uid} batched {batched[uid]} solo {solo}: "
+            f"max |d logit| batched vs solo {d}")
+        if solo != batched[uid]:
+            raise SystemExit(f"[{tag}] req {uid}: batched greedy tokens != "
+                             "solo")
+    profile_step(torch, lambda: eng._decode(
+        np.zeros((4, 1), np.int32), 100,
+        eng._mask([0, 1, 2, 3]))[0].sum().item(),
+        f"one {policy} decode step (4 slots)")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_reduced_lm(torch) -> None:
+    """Phase 13: reduced granite-3-2b, flash kernel on, under fp32 and
+    kom_int14 (f32 compute): the forward and four decode steps on the card
+    against the plain versions on the CPU (which the CPU tests hold against
+    the JAX reference)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer
+
+    for policy, tol in (("fp32", REDUCED_TOL_FP32),
+                        ("kom_int14", REDUCED_TOL_KOM)):
+        cfg = reduced(get_config("granite-3-2b")).replace(
+            policy=MatmulPolicy(policy), compute_dtype="float32",
+            use_flash_kernel=True)
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(2), device="cpu")
+        if policy == "kom_int14":
+            from repro_torch.serving.weight_quant import \
+                quantize_params_inline
+            params = quantize_params_inline(params)
+        gp = transformer.params_to(params, "cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                               generator=torch.Generator().manual_seed(3))
+        want, _ = transformer.forward(params, cfg, {"tokens": tokens})
+        build.reset_launches()
+        got, _ = transformer.forward(gp, cfg, {"tokens": tokens.cuda()})
+        launches = build.launch_counts()
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        cache = transformer.init_cache(cfg, 2, 8, device="cpu")
+        gcache = transformer.init_cache(cfg, 2, 8, device="cuda")
+        drel = 0.0
+        for t in range(4):
+            w, cache = transformer.serve_step(params, cfg, cache,
+                                              tokens[:, t:t + 1], t)
+            g, gcache = transformer.serve_step(gp, cfg, gcache,
+                                               tokens[:, t:t + 1].cuda(), t)
+            drel = max(drel, float((g.cpu() - w).abs().max()
+                                   / w.abs().max()))
+        log(f"[reduced_lm] granite-3-2b (reduced) {policy}: card vs CPU "
+            f"forward {rel:.3e}, decode {drel:.3e} (tol {tol}), forward "
+            f"launches {launches}")
+        want_l = {"flash_attention": cfg.n_layers}
+        if policy == "kom_int14":
+            want_l["kom_matmul"] = 7 * cfg.n_layers + 1
+        if launches != want_l or not (rel <= tol and drel <= tol):
+            raise SystemExit(f"[reduced_lm] {policy}: {rel}, {drel}, "
+                             f"{launches}")
 
 
 def main() -> int:
@@ -1094,6 +1606,19 @@ def main() -> int:
     counts, ref, ref_imgs = phase_serve_vgg16_systolic(torch, card, params)
     add(counts)
     add(phase_serve_vgg16_bf16x3(torch, card, params, ref, ref_imgs))
+    del params, ref
+    torch.cuda.empty_cache()
+    attn, decode_launches = phase_compare_attention(torch)
+    phase_compare_lm_gemm(torch)
+    summary.update(attn)
+    add(decode_launches)
+    granite = granite_params(torch)
+    add(phase_prefill(torch, card, granite))
+    for policy in ("native_bf16", "kom_int14"):
+        add(phase_serve_lm(torch, card, granite, policy))
+    del granite
+    torch.cuda.empty_cache()
+    phase_reduced_lm(torch)
     kernels = []
     for name in KERNELS:
         s = summary[name]

@@ -1,5 +1,7 @@
-"""Roofline floor of one conv layer on one NVIDIA H100 (the port of
-``repro.analysis.roofline``'s ``conv_mult_counts`` / ``conv_layer_roofline``).
+"""Roofline floors on one NVIDIA H100: one conv layer (the port of
+``repro.analysis.roofline``'s ``conv_mult_counts`` / ``conv_layer_roofline``)
+and the two attention kernels (:func:`attention_roofline`,
+:func:`decode_attention_roofline`).
 
 Priced with the H100 SXM's published dense peaks (NVIDIA data sheet):
 int8 tensor-core operations 1,979 TOP/s, bf16 989 TFLOP/s, f32 on the CUDA
@@ -87,3 +89,48 @@ def conv_layer_roofline(path: str, *, kh, kw, stride, h, cin, cout,
                               handoff_in=handoff_in) / H100["hbm_bw"]
     return {"compute_s": compute_s, "memory_s": memory_s,
             "roofline_s": max(compute_s, memory_s), **counts}
+
+
+def _live_pairs(sq, skv, *, causal, window, q_offset) -> int:
+    """Number of (query, key) pairs the mask leaves live."""
+    live = 0
+    for i in range(sq):
+        p = i + q_offset
+        hi = min(p, skv - 1) if causal else skv - 1
+        lo = max(0, p - window + 1) if window is not None else 0
+        live += max(0, hi - lo + 1)
+    return live
+
+
+def attention_roofline(*, b, hq, hkv, sq, skv, dh, causal=True, window=None,
+                       q_offset=0, itemsize=4) -> Dict[str, float]:
+    """H100 floor of one flash-attention call (seconds).
+
+    compute_s: ``4*b*hq*sq*skv*dh`` FLOPs (QK^T and PV) times the unmasked
+    share of the (sq, skv) pairs, at the f32 CUDA-core peak (the kernel's
+    math is f32).  memory_s: q, k, v read once and o written once, at the
+    HBM rate.
+    """
+    share = _live_pairs(sq, skv, causal=causal, window=window,
+                        q_offset=q_offset) / float(sq * skv)
+    flops = 4.0 * b * hq * sq * skv * dh * share
+    nbytes = float(itemsize * dh * (2 * b * hq * sq + 2 * b * hkv * skv))
+    compute_s = flops / H100["peak_fp32"]
+    memory_s = nbytes / H100["hbm_bw"]
+    return {"flops": flops, "bytes": nbytes, "live_share": share,
+            "compute_s": compute_s, "memory_s": memory_s,
+            "roofline_s": max(compute_s, memory_s)}
+
+
+def decode_attention_roofline(*, b, hq, hkv, S, dh, pos,
+                              itemsize=4) -> Dict[str, float]:
+    """H100 floor of one flash-decode call (seconds): the K/V bytes of the
+    ``pos + 1`` valid keys read once (plus q and o), against ``4*b*hq*(pos+1)
+    *dh`` FLOPs at the f32 peak."""
+    n = min(pos + 1, S) if pos >= 0 else S
+    flops = 4.0 * b * hq * n * dh
+    nbytes = float(itemsize * dh * (2 * b * hkv * n + 2 * b * hq))
+    compute_s = flops / H100["peak_fp32"]
+    memory_s = nbytes / H100["hbm_bw"]
+    return {"flops": flops, "bytes": nbytes, "compute_s": compute_s,
+            "memory_s": memory_s, "roofline_s": max(compute_s, memory_s)}

@@ -1,3 +1,3 @@
-from .registry import CNN_ARCHS, get_config, reduced
+from .registry import ARCHS, CNN_ARCHS, get_config, list_configs, reduced
 
-__all__ = ["CNN_ARCHS", "get_config", "reduced"]
+__all__ = ["ARCHS", "CNN_ARCHS", "get_config", "list_configs", "reduced"]

@@ -1,7 +1,8 @@
-"""Convert the JAX package's CNN params into the port's.
+"""Convert the JAX package's params into the port's.
 
-Both packages keep params as a list of per-layer dicts in NHWC / HWIO
-layout, so the conversion is one tensor per array; torch and JAX random
+Both packages keep CNN params as a list of per-layer dicts in NHWC / HWIO
+layout, and LM params as one nested dict with stacked (leading layer axis)
+leaves, so the conversion is one tensor per array; torch and JAX random
 generators differ, so differential tests make params on one side and carry
 them across here.  The input is host data -- numpy arrays, e.g.
 ``jax.tree.map(np.asarray, cnn_init(cfg, key))`` -- so this module needs
@@ -25,3 +26,17 @@ def params_from_numpy(params, *, device=None) -> list:
                                                   copy=True)).to(dev)
                     for k, v in p.items()})
     return out
+
+
+def lm_params_from_numpy(tree, *, device=None) -> dict:
+    """A nested dict of arrays (``jax.tree.map(np.asarray,
+    transformer.init_params(cfg, key))``) -> the same dict of tensors on
+    ``device``, each keeping its dtype."""
+    dev = resolve_device(device)
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.array(v, copy=True)).to(dev)
+
+    return conv(tree)

@@ -327,17 +327,30 @@ class QWeight:
         return QWeight(self.values.to(device), self.scale.to(device),
                        self.base_bits)
 
+    def __getitem__(self, i) -> "QWeight":
+        """Layer ``i`` of a stacked weight (values (L, k, n), scales
+        (L, 1, n)): the slice ``lax.scan`` hands each layer in the
+        reference."""
+        return QWeight(self.values[i], self.scale[i], self.base_bits)
 
-def quantize_weight(w: torch.Tensor, *, base_bits: int = 7) -> QWeight:
+
+def quantize_weight(w: torch.Tensor, *, base_bits: int = 7,
+                    stack_axes: int = 0) -> QWeight:
     """Per-output-channel (last axis) symmetric quantization, done once.
 
+    ``stack_axes``: leading axes that are layer stacks rather than
+    contraction dims (stacked transformer weights (L, k, n) use 1); the
+    scales then keep them, shape (L, 1, n), so the QWeight slices per layer.
     The scale is a TRUE division ``max(amax, 1e-12) / qmax``: the reference
     quantizes weights eagerly at engine build, outside any ``jit``.
     """
     qmax = kom_qmax(base_bits)
     w = w.to(torch.float32)
-    amax = w.abs().amax(dim=tuple(range(w.ndim - 1))) if w.ndim > 1 \
-        else w.abs()
+    red = tuple(range(stack_axes, w.ndim - 1))
+    if not red:
+        amax = w.abs()
+    else:
+        amax = w.abs().amax(dim=red, keepdim=stack_axes > 0)
     amax = torch.clamp_min(amax, 1e-12)
     scale = amax / torch.full_like(amax, qmax)
     q = torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int16)
@@ -440,7 +453,8 @@ def prequant_dot_general(x: torch.Tensor, w: QWeight, *,
     rs = torch.broadcast_to(row_scale, lead + (1,)).reshape(-1)
     out = kom_matmul_int(q.reshape(-1, k).to(torch.int16), w.values,
                          variant=variant, base_bits=w.base_bits,
-                         row_scale=rs.contiguous(), col_scale=w.scale,
+                         row_scale=rs.contiguous(),
+                         col_scale=w.scale.reshape(-1),
                          bias=bias)
     return out.reshape(lead + (w.shape[-1],))
 

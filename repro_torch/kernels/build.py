@@ -50,6 +50,8 @@ SOURCES = {
     "implicit_conv_float": "implicit_conv_float.cu",
     "systolic_conv": "systolic_conv.cu",
     "winograd": "winograd.cu",
+    "flash_attention": "flash_attention.cu",
+    "flash_decode": "flash_decode.cu",
 }
 HEADERS = ("limb_tile.cuh", "float_tile.cuh")
 

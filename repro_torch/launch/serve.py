@@ -1,4 +1,4 @@
-"""Serving launcher, CNN half: batched image requests through the port.
+"""Serving launcher: batched image requests or LM requests through the port.
 
     python -m repro_torch.launch.serve --arch alexnet --policy kom_int14 \\
         --buckets 1,4,16 --requests 32 [--device cpu] [--reduced]
@@ -8,18 +8,28 @@
         --conv-path systolic
     python -m repro_torch.launch.serve --arch vgg16 --policy bf16x3 \\
         --conv-path implicit
+    python -m repro_torch.launch.serve --arch granite-3-2b \\
+        --policy kom_int14 --slots 4 --requests 8
 
 Runs on the GPU unless ``--device cpu`` is given (and refuses to start
 without one otherwise).  ``--reduced`` serves the CPU-test twin of the
-config (tiny widths); without it the model is served at full width.
-``--explore --model-only [--requant]`` plans every conv layer with the
-port's cost model at launch (``--requant`` allows the ``pool_quant``
+config (tiny widths); without it the model is served at full width (the
+reference's LM launcher cannot turn its ``--reduced`` off; the port keeps
+one rule for both halves).
+
+CNNs: ``--explore --model-only [--requant]`` plans every conv layer with
+the port's cost model at launch (``--requant`` allows the ``pool_quant``
 handoff); ``--plan PATH`` serves a saved plan artifact.  ``--conv-path``
 pins ONE engine for every conv layer instead (it refuses ``--plan`` and
 ``--explore``, and a policy the engine cannot run exactly, as the
-reference launcher does).  The transformer archs, the multi-model
-dispatcher and fault injection of the reference launcher are not ported
-yet.
+reference launcher does).
+
+LMs (the dense family): ``--slots`` decode slots, ``--max-len`` cache
+length, ``--max-new`` tokens per request; each request's prompt is
+``rng.integers(3, 9)`` random tokens, as in the reference.  ``--policy``
+defaults to the config's own (``native_bf16``) for an LM and to
+``kom_int14`` for a CNN.  The multi-model dispatcher and fault injection
+of the reference launcher are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import CNN_ARCHS, get_config, reduced
+from repro_torch.configs import ARCHS, CNN_ARCHS, get_config, reduced
 from repro_torch.core.precision import MatmulPolicy
 from repro_torch.core.substrate import validate_path_policy
 from repro_torch.device import resolve_device
@@ -104,11 +114,52 @@ def serve_cnn(cfg, args) -> int:
     return 0 if served == args.requests else 1
 
 
+def serve_lm(cfg, args) -> int:
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = transformer.init_params(cfg, gen, device=device)
+    engine = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
+                         device=device)
+    del params
+    rng = np.random.default_rng(args.seed)
+    t0 = time.time()
+    for uid in range(args.requests):
+        plen = int(rng.integers(3, 9))
+        prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+        engine.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=args.max_new))
+    done = engine.run()
+    dt = time.time() - t0
+    n_tok = sum(len(r.out_tokens) for r in done.values())
+    for uid in sorted(done):
+        r = done[uid]
+        print(f"[serve] req {uid}: prompt {[int(t) for t in r.prompt]} -> "
+              f"{r.out_tokens}")
+    for uid in sorted(engine.expired):
+        print(f"[serve] req {uid}: EXPIRED before admission")
+    for uid, flr in sorted(engine.failed.items()):
+        print(f"[serve] req {uid}: FAILED after {flr.attempts} attempts "
+              f"({flr.error})")
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"[serve] {cfg.name}/{cfg.policy.value} on {where}: {len(done)} "
+          f"requests ({len(engine.expired)} expired, {len(engine.failed)} "
+          f"failed, health {engine.health}), {n_tok} tokens in {dt:.1f}s "
+          f"({n_tok / dt:.1f} tok/s)", flush=True)
+    served = len(done) + len(engine.expired) + len(engine.failed)
+    return 0 if served == args.requests else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="alexnet", choices=CNN_ARCHS)
-    ap.add_argument("--policy", default="kom_int14",
-                    choices=[p.value for p in MatmulPolicy])
+    ap.add_argument("--arch", default="alexnet", choices=CNN_ARCHS + ARCHS)
+    ap.add_argument("--policy", default=None,
+                    choices=[p.value for p in MatmulPolicy],
+                    help="default: kom_int14 for a CNN, the config's own "
+                         "for an LM")
     ap.add_argument("--buckets", default="1,4,16",
                     help="microbatch bucket sizes (comma-separated)")
     ap.add_argument("--requests", type=int, default=32)
@@ -132,8 +183,29 @@ def main(argv=None) -> int:
     ap.add_argument("--requant", action="store_true",
                     help="with --explore: allow the pool_quant handoff "
                          "(the next layer reads the producer's int16)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="LM: decode slots")
+    ap.add_argument("--max-new", type=int, default=12,
+                    help="LM: new tokens per request")
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="LM: KV cache length per slot")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.arch in ARCHS:
+        cnn_only = [f for f, on in (
+            ("--explore", args.explore), ("--plan", args.plan),
+            ("--model-only", args.model_only), ("--requant", args.requant),
+            ("--conv-path", args.conv_path != "auto")) if on]
+        if cnn_only:
+            ap.error(f"{', '.join(cnn_only)}: CNN flags; {args.arch} is an "
+                     "LM")
+        cfg = get_config(args.arch)
+        if args.policy:
+            cfg = cfg.replace(policy=MatmulPolicy(args.policy))
+        if args.reduced:
+            cfg = reduced(cfg)
+        return serve_lm(cfg, args)
+    args.policy = args.policy or "kom_int14"
     if args.explore and args.plan:
         ap.error("--explore and --plan are mutually exclusive")
     if (args.model_only or args.requant) and not args.explore:

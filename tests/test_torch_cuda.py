@@ -12,6 +12,9 @@ their plain versions are the schedules' exact values, so what is left is
 the kernels' own f32 accumulation error, and the plain value of the
 neighbouring schedule on the same inputs must miss that tolerance.
 """
+import contextlib
+import importlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -369,3 +372,149 @@ def test_reduced_model_pinned_path_on_card_matches_cpu(dev, arch, policy,
                 other = cnn.cnn_forward(params, cfg.replace(
                     policy=MatmulPolicy.BF16X3, conv_path="implicit"), x)
             assert _rel(other, want) > FLOAT_TOL, _rel(other, want)
+
+
+# -- attention kernels ---------------------------------------------------------
+#
+# f32 inputs: the kernels and their plain versions sum the same products in
+# other orders, so max|kernel - plain| <= ATTN_TOL_F32 (the reference's own
+# kernel-vs-oracle tolerance, outputs are O(1)); bf16 outputs may round one
+# bf16 ulp apart: ATTN_TOL_BF16.  Every f32 check also runs the plain version
+# with its mask mutated -- causal ``>`` for ``>=`` (attention), ``<`` for
+# ``<=`` (decode) -- and requires it to MISS ATTN_TOL_F32.
+
+ATTN_TOL_F32 = 2e-5
+ATTN_TOL_BF16 = 2e-2
+
+
+def _strict_causal(orig):
+    def live(q_pos, k_pos, *, causal, window):
+        m = orig(q_pos, k_pos, causal=causal, window=window)
+        return m & (q_pos[:, None] != k_pos[None, :]) if causal else m
+    return live
+
+
+@contextlib.contextmanager
+def _mutated(module: str, name: str, make):
+    """``module.name`` replaced by ``make(original)`` inside the block."""
+    mod = importlib.import_module(module)
+    orig = getattr(mod, name)
+    setattr(mod, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+FA_MOD = "repro_torch.kernels.flash_attention.flash_attention"
+FD_MOD = "repro_torch.kernels.flash_decode.flash_decode"
+
+
+def _attn_inputs(shape_q, shape_kv, dtype, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype).to(dev)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+def _kernel_vs_plain(run, name, tol, mutant=None):
+    """The kernel within ``tol`` of its plain version; the plain version
+    under ``mutant`` (a context manager) not."""
+    build.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {name: 1}
+    with build.plain_versions():
+        want = run()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got.float()).all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, err
+    if mutant is not None:
+        with mutant, build.plain_versions():
+            bad = run()
+        miss = float((got.float() - bad.float()).abs().max())
+        assert miss > tol, miss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,off,window", [
+    (2, 4, 4, 64, 64, 64, 0, None),
+    (1, 8, 2, 1, 128, 64, 127, None),          # sq = 1 (a decode row)
+    (1, 4, 4, 100, 300, 64, 200, None),        # skv not a block multiple
+    (1, 32, 1, 129, 129, 128, 0, None),        # group 32, dh 128, ragged
+    (2, 4, 4, 200, 200, 16, 0, 48),            # window, dh 16
+    (1, 6, 2, 256, 2048, 64, 1792, 512),       # q_offset + window
+    (1, 2, 1, 40, 40, 32, 0, None),            # dh 32, one short block
+])
+def test_flash_attention_kernel_equals_plain(dev, b, hq, hkv, sq, skv, d,
+                                             off, window):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _attn_inputs((b, hq, sq, d), (b, hkv, skv, d), torch.float32,
+                           dev, b + hq + sq + skv + d)
+    _kernel_vs_plain(lambda: fa(q, k, v, causal=True, window=window,
+                                q_offset=off),
+                     "flash_attention", ATTN_TOL_F32,
+                     _mutated(FA_MOD, "live_mask", _strict_causal))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    _kernel_vs_plain(lambda: fa(qb, kb, vb, causal=True, window=window,
+                                q_offset=off),
+                     "flash_attention", ATTN_TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_noncausal_and_unlive_rows(dev):
+    """Non-causal (no padding), and rows with NO live key (a window that
+    ends before the cache): the kernel walks every block for them and
+    averages the values, as the reference's -1e30 arithmetic does."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _attn_inputs((1, 4, 64, 64), (1, 2, 128, 64), torch.float32,
+                           dev, 11)
+    _kernel_vs_plain(lambda: fa(q, k, v, causal=False), "flash_attention",
+                     ATTN_TOL_F32)
+    _kernel_vs_plain(lambda: fa(q, k, v, causal=True, window=4,
+                                q_offset=300), "flash_attention",
+                     ATTN_TOL_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,S,dh,pos", [
+    (2, 4, 4, 256, 64, 0),          # pos = 0
+    (1, 8, 2, 512, 64, 511),        # pos = S - 1
+    (1, 4, 1, 300, 128, 7),         # S not a block multiple, dh 128
+    (2, 32, 1, 1000, 64, 999),      # group 32, padded, pos = S - 1
+    (1, 4, 4, 4096, 16, 2500),      # many splits, dh 16
+])
+def test_flash_decode_kernel_equals_plain(dev, b, hq, hkv, S, dh, pos):
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v = _attn_inputs((b, hq, 1, dh), (b, hkv, S, dh), torch.float32,
+                           dev, b + hq + S + dh + pos)
+    _kernel_vs_plain(lambda: flash_decode(q, k, v, pos), "flash_decode",
+                     ATTN_TOL_F32,
+                     _mutated(FD_MOD, "valid_keys",
+                              lambda orig: lambda kp, p: kp < p))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    _kernel_vs_plain(lambda: flash_decode(qb, kb, vb, pos), "flash_decode",
+                     ATTN_TOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-7b"])
+def test_reduced_lm_flash_forward_on_card_matches_cpu(dev, arch):
+    """A reduced LM's prefill with the flash kernel on the card (one launch
+    per layer) within 1e-5 of max|logit| of the CPU plain versions under
+    fp32 (f32 compute; the projections' sums differ in order too)."""
+    from repro_torch.models import transformer
+    cfg = reduced(get_config(arch)).replace(
+        policy=MatmulPolicy.FP32, compute_dtype="float32",
+        use_flash_kernel=True)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(2),
+                                     device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(3))
+    want, _ = transformer.forward(params, cfg, {"tokens": tokens})
+    build.reset_launches()
+    got, _ = transformer.forward(transformer.params_to(params, dev), cfg,
+                                 {"tokens": tokens.to(dev)})
+    assert build.launch_counts() == {"flash_attention": cfg.n_layers}
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err

@@ -173,7 +173,8 @@ def test_bf16_gemm_plain_matches_reference(passes):
 @pytest.mark.parametrize("policy", ["bf16x3", "bf16x6", "fp32"])
 def test_policy_linear_float_policies_match_reference(policy):
     """FC layers under the float policies, a cached QWeight dequantized
-    first; the integer policies still refuse float weights."""
+    first; the integer policies on float weights run their forward and
+    refuse gradients."""
     rng = np.random.default_rng(20)
     x = rng.standard_normal((2, 3, 96)).astype(np.float32)
     w = (rng.standard_normal((96, 40)) * 0.1).astype(np.float32)
@@ -187,8 +188,15 @@ def test_policy_linear_float_policies_match_reference(policy):
         got = pprec.policy_linear(_t(x), pw, policy=policy, bias=_t(b))
         neighbour = pprec.policy_linear(_t(x), pw, policy=other, bias=_t(b))
         _separates(got.numpy(), want, neighbour.numpy())
+    # integer policies on float weights: the forward is the eager
+    # reference's per-tensor product bit for bit; gradients are not ported
+    np.testing.assert_array_equal(
+        pprec.policy_linear(_t(x), _t(w), policy="kom_int14").numpy(),
+        np.asarray(rprec.policy_linear(jnp.asarray(x), jnp.asarray(w),
+                                       policy="kom_int14")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pprec.policy_linear(_t(x), _t(w), policy="kom_int14")
+        pprec.policy_linear(_t(x).requires_grad_(), _t(w),
+                            policy="kom_int14")
 
 
 # (n, h, cin, k, cout, stride, padding)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Proof on an NVIDIA GPU that the port's AlexNet, VGG16 and granite-3-2b
-paths run.
+"""Proof on an NVIDIA GPU that the port's AlexNet, VGG16, granite-3-2b and
+xlstm-125m paths run.
 
     python3 chip_smoke.py
 
@@ -93,9 +93,32 @@ Phases, each fatal on failure:
 13. reduced granite-3-2b (flash kernel on) under ``fp32`` and
     ``kom_int14``: the forward and four decode steps on the card within
     REDUCED_TOL_FP32 / REDUCED_TOL_KOM of the CPU plain versions;
-14. print the card line, a ``kernels`` JSON line (launches: the serving
+14. hold the chunkwise-mLSTM kernel against its plain version (the
+    model's chunk loop, f32) at one full-width xlstm-125m layer (b 4, h 4,
+    s 2048, dh 384, chunk 64) in f32 and bf16, at s 2000 (padded) and 17
+    (< chunk), with strong forget gates (log_f ~ -5), with zero input-gate
+    rows and at 1 x 4 x 32768 (``prefill_32k``'s length, 512 chunks):
+    within MLSTM_TOL of max |plain|, the two mutant plain versions (the
+    causal mask without its diagonal, the state written without the input
+    gate) required to miss it; timed beside the ``analysis/roofline``
+    bound (no PyTorch call computes the chunkwise mLSTM); then the op's
+    own run (its entry point, no model calls it, as in the reference);
+15. full-width xlstm-125m (12 layers as 3 groups of (m, m, m, s), random
+    weights, seed 0): the kernel on the first mLSTM layer's own q/k/v and
+    gates from a 4 x 2048 prefill, within MLSTM_TOL of max |y| of that
+    layer's chunk loop;
+16. the xlstm-125m prefill step on 4 x 2048 tokens under ``native_bf16``
+    (no kernel launches: the model's chunk loop is plain PyTorch, as the
+    reference's ``lax.scan``) -- tokens/s, a profile with the device time
+    under the mLSTM chunk loops and the sLSTM blocks -- and under ``fp32``;
+17. serve full-width xlstm-125m through ``ServeEngine`` as phase 12 (70
+    limb-GEMM launches per serve_step under ``kom_int14``);
+18. reduced xlstm-125m under ``fp32`` and ``kom_int14``: the forward and
+    four decode steps on the card within REDUCED_TOL_FP32 /
+    REDUCED_TOL_KOM of the CPU plain versions;
+19. print the card line, a ``kernels`` JSON line (launches: the serving
     runs, the fp32 yardstick forward, the granite prefill forward and the
-    decode op's run, each counted from 0) and, last,
+    two ops' own runs, each counted from 0) and, last,
     ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -130,12 +153,19 @@ PREFILL_TOL_FP32 = 1e-4
 #: order), kom_int14 (an ulp can move a 14-bit quantization level).
 REDUCED_TOL_FP32 = 1e-5
 REDUCED_TOL_KOM = 2e-3
+#: The mLSTM kernel against its plain version, of max |plain|, f32 and bf16
+#: inputs alike (bf16 is cast to f32 exactly, the output is f32): both run
+#: f32 sums in other orders, and the plain version is the noisier one (on
+#: an H100 at 4 x 2048, dh 384 it lies ~9e-6 from an f64 run, the kernel
+#: ~3e-6).
+MLSTM_TOL = 2e-5
+XLSTM = "xlstm-125m"
 #: The JSON line's kernels: each launch counter of the build's wrappers.
 KERNELS = ("kom_matmul", "implicit_conv", "implicit_conv_pool",
            "implicit_conv_handoff", "winograd", "systolic_conv",
            "systolic_conv_native", "implicit_conv_native",
            "implicit_conv_bf16x3", "implicit_conv_bf16x6", "bf16_matmul",
-           "flash_attention", "flash_decode")
+           "flash_attention", "flash_decode", "mlstm_chunk")
 _IMPLICIT = "src/repro/kernels/conv2d/implicit_gemm.py:131"
 #: Where each ported kernel came from (the Pallas kernel's definition).
 REPLACES = {
@@ -153,6 +183,7 @@ REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:26",
     "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:25",
+    "mlstm_chunk": "src/repro/kernels/mlstm_chunk/mlstm_chunk.py:21",
 }
 SOURCES = {
     "kom_matmul": "repro_torch/csrc/kom_matmul.cu",
@@ -168,6 +199,7 @@ SOURCES = {
     "bf16_matmul": "repro_torch/csrc/bf16_matmul.cu",
     "flash_attention": "repro_torch/csrc/flash_attention.cu",
     "flash_decode": "repro_torch/csrc/flash_decode.cu",
+    "mlstm_chunk": "repro_torch/csrc/mlstm_chunk.cu",
 }
 #: Full-width VGG16 (h, cin, cout) of each pool-followed conv (pooled
 #: variant) and each conv fed by a pool_quant handoff (handoff variant).
@@ -1061,29 +1093,42 @@ def phase_profile(torch, eng, batch) -> None:
                  f"one {len(batch)}-image step")
 
 
-def profile_step(torch, fn, what: str) -> None:
+def profile_step(torch, fn, what: str, ranges=None) -> None:
     """Where one call of ``fn`` (which must end in a host sync) spends its
     time: its wall clock, and from ``torch.profiler`` the device time of
     every kernel and copy by name; device busy = the union of their
     intervals on the device timeline, idle = the profiled call's wall clock
-    minus busy (an upper bound: the profiler slows the host)."""
+    minus busy (an upper bound: the profiler slows the host).
+
+    ``ranges`` (optional): ``(labels, context manager)`` -- the profiled
+    call runs inside the context, which marks code with
+    ``record_function(label)``; for each label the device busy time of the
+    kernels inside its ranges on the device timeline is reported too."""
+    import bisect
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    labels, ctx = ranges if ranges is not None else ((), None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            (ctx if ctx is not None else contextlib.nullcontext()):
         t0 = time.perf_counter()
         fn()
         prof_wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans, by_name = [], {}
+    spans, by_name, windows = [], {}, {lb: [] for lb in labels}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         t0_us, t1_us = e.time_range.start, e.time_range.end
+        if e.name in windows:     # a range's span on the device timeline
+            windows[e.name].append((t0_us, t1_us))
+            continue
         spans.append((t0_us, t1_us))
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + (t1_us - t0_us))
@@ -1106,6 +1151,22 @@ def profile_step(torch, fn, what: str) -> None:
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
             :14]:
         log(f"[profile]   {us / 1e3:9.4f} ms  x{n:<3d} {name[:100]}")
+    for label, wins in windows.items():
+        if not wins:
+            log(f"[profile]   {label}: not measured (no device range)")
+            continue
+        wins.sort()
+        starts = [w[0] for w in wins]
+        inside = 0.0
+        for t0_us, t1_us in spans:
+            i = bisect.bisect_right(starts, t0_us) - 1
+            if i >= 0 and t0_us < wins[i][1]:
+                inside += t1_us - t0_us
+        span = sum(w[1] - w[0] for w in wins)
+        log(f"[profile]   {label}: kernels {inside / 1e3:.3f} ms "
+            f"({100 * inside / busy_us:.1f}% of device busy) over "
+            f"{len(wins)} ranges spanning {span / 1e3:.3f} ms of the "
+            "device timeline")
 
 
 # ---------------------------------------------------------------------------
@@ -1342,18 +1403,18 @@ def phase_compare_lm_gemm(torch) -> None:
                     for k, v in tot.items()))
 
 
-def granite_params(torch):
-    """Full-width granite-3-2b float params on the card (seed 0)."""
+def lm_params(torch, arch: str = "granite-3-2b"):
+    """Full-width float params of ``arch`` on the card (seed 0)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
 
-    cfg = get_config("granite-3-2b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = transformer.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    log(f"[granite] {n / 1e9:.3f} B params (f32) on the card in "
+    log(f"[{arch}] {n / 1e9:.3f} B params (f32) on the card in "
         f"{time.perf_counter() - t0:.2f}s")
     return params
 
@@ -1444,8 +1505,21 @@ class _Recorder:
         return self.eng.done
 
 
-def phase_serve_lm(torch, card: str, params, policy: str) -> dict:
-    """Phase 12: full-width granite-3-2b through ServeEngine: slots 4,
+def limb_gemms_per_step(cfg) -> int:
+    """Limb-GEMM launches of one forward or serve_step under kom_int14:
+    dense -- 7 projections per layer; xLSTM -- 6 prequantized projections
+    plus ``w_if`` (``kom_q_dot``) per mLSTM, ``w_in`` and ``w_down`` per
+    sLSTM; then the head."""
+    if cfg.family == "ssm":
+        n_m = cfg.xlstm_group.count("m") * cfg.n_xlstm_groups
+        n_s = cfg.xlstm_group.count("s") * cfg.n_xlstm_groups
+        return 7 * n_m + 2 * n_s + 1
+    return 7 * cfg.n_layers + 1
+
+
+def phase_serve_lm(torch, card: str, params, policy: str,
+                   arch: str = "granite-3-2b") -> dict:
+    """Phases 12 and 17: full-width ``arch`` through ServeEngine: slots 4,
     max_len 512, 8 requests by the launcher's prompt rule, max_new 12; two
     requests re-served alone must give the same greedy tokens."""
     import numpy as np
@@ -1455,8 +1529,8 @@ def phase_serve_lm(torch, card: str, params, policy: str) -> dict:
     from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServeEngine
 
-    tag = f"serve_lm {policy}"
-    cfg = get_config("granite-3-2b", policy=MatmulPolicy(policy))
+    tag = f"serve_lm {arch} {policy}"
+    cfg = get_config(arch, policy=MatmulPolicy(policy))
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, slots=4, max_len=512, device="cuda")
     torch.cuda.synchronize()
@@ -1485,13 +1559,15 @@ def phase_serve_lm(torch, card: str, params, policy: str) -> dict:
     if sorted(done) != list(range(8)) or \
             any(len(done[u].out_tokens) != 12 for u in done):
         raise SystemExit(f"[{tag}] served {len(done)} of 8")
-    # under kom_int14 each serve_step runs 7 limb GEMMs per layer + the head
-    want = {"kom_matmul": n_decode[0] * (7 * cfg.n_layers + 1)} \
+    per_step = limb_gemms_per_step(cfg)
+    want = {"kom_matmul": n_decode[0] * per_step} \
         if policy == "kom_int14" else {}
     check_launches(tag, launches, want)
     n_tok = sum(len(done[u].out_tokens) for u in done)
     st = np.array(rec.step_s)
-    log(f"[{tag}] granite-3-2b/{policy} on {card}: 8/8 requests, {n_tok} "
+    if policy == "kom_int14":
+        log(f"[{tag}] {per_step} limb-GEMM launches per serve_step")
+    log(f"[{tag}] {arch}/{policy} on {card}: 8/8 requests, {n_tok} "
         f"tokens in {wall:.2f}s ({n_tok / wall:.1f} decode tok/s), "
         f"{n_decode[0]} serve_steps, {len(st)} engine steps: p50 "
         f"{1e3 * np.percentile(st, 50):.2f} ms, p95 "
@@ -1518,11 +1594,11 @@ def phase_serve_lm(torch, card: str, params, policy: str) -> dict:
     return launches
 
 
-def phase_reduced_lm(torch) -> None:
-    """Phase 13: reduced granite-3-2b, flash kernel on, under fp32 and
-    kom_int14 (f32 compute): the forward and four decode steps on the card
-    against the plain versions on the CPU (which the CPU tests hold against
-    the JAX reference)."""
+def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
+    """Phases 13 and 18: reduced ``arch`` (granite: flash kernel on) under
+    fp32 and kom_int14 (f32 compute): the forward and four decode steps on
+    the card against the plain versions on the CPU (which the CPU tests
+    hold against the JAX reference)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.precision import MatmulPolicy
     from repro_torch.kernels import build
@@ -1530,9 +1606,9 @@ def phase_reduced_lm(torch) -> None:
 
     for policy, tol in (("fp32", REDUCED_TOL_FP32),
                         ("kom_int14", REDUCED_TOL_KOM)):
-        cfg = reduced(get_config("granite-3-2b")).replace(
+        cfg = reduced(get_config(arch)).replace(
             policy=MatmulPolicy(policy), compute_dtype="float32",
-            use_flash_kernel=True)
+            use_flash_kernel=arch != "xlstm-125m")
         params = transformer.init_params(
             cfg, torch.Generator().manual_seed(2), device="cpu")
         if policy == "kom_int14":
@@ -1557,16 +1633,264 @@ def phase_reduced_lm(torch) -> None:
                                                tokens[:, t:t + 1].cuda(), t)
             drel = max(drel, float((g.cpu() - w).abs().max()
                                    / w.abs().max()))
-        log(f"[reduced_lm] granite-3-2b (reduced) {policy}: card vs CPU "
+        log(f"[reduced_lm] {arch} (reduced) {policy}: card vs CPU "
             f"forward {rel:.3e}, decode {drel:.3e} (tol {tol}), forward "
             f"launches {launches}")
-        want_l = {"flash_attention": cfg.n_layers}
+        want_l = {"flash_attention": cfg.n_layers} \
+            if cfg.use_flash_kernel else {}
         if policy == "kom_int14":
-            want_l["kom_matmul"] = 7 * cfg.n_layers + 1
+            want_l["kom_matmul"] = limb_gemms_per_step(cfg)
         if launches != want_l or not (rel <= tol and drel <= tol):
             raise SystemExit(f"[reduced_lm] {policy}: {rel}, {drel}, "
                              f"{launches}")
 
+# ---------------------------------------------------------------------------
+# Phases 14-18: the mLSTM kernel and full-width xlstm-125m.
+# ---------------------------------------------------------------------------
+
+SSM_MOD = "repro_torch.models.ssm"
+
+
+def strict_causal_chunk(orig):
+    """The intra-chunk mask without its diagonal (``>`` for ``>=``)."""
+    def mask(chunk, device):
+        return orig(chunk, device).tril(diagonal=-1)
+    return mask
+
+
+def no_input_gate(orig):
+    """The state written without the input gate."""
+    def weights(ltot, lcum, i_gate):
+        return orig(ltot, lcum, i_gate.new_ones(i_gate.shape))
+    return weights
+
+
+#: The mutant plain versions the mLSTM kernel must miss: (name in
+#: ``models.ssm``, its replacement).
+MLSTM_MUTANTS = (("causal_mask", strict_causal_chunk),
+                 ("state_write_weights", no_input_gate))
+
+
+def mlstm_inputs(torch, b, h, s, dh, seed, *, strong=False, zero_ig=False):
+    """tests/test_mlstm_kernel.py's distributions on the card; ``strong``:
+    log_f about -5 (cumulative decays pass the -60 clip within a chunk);
+    ``zero_ig``: every third input gate 0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    q, k, v = rnd(b, h, s, dh), rnd(b, h, s, dh) * 0.3, rnd(b, h, s, dh)
+    lf = torch.log(torch.rand((b, h, s), generator=gen, device="cuda")
+                   * 0.29 + 0.7)
+    if strong:
+        lf = lf - 5.0
+    ig = torch.rand((b, h, s), generator=gen, device="cuda") * 0.8 + 0.1
+    if zero_ig:
+        ig[:, :, ::3] = 0.0
+    return q, k, v, lf, ig
+
+
+def mlstm_case(torch, build, summary, label, q, k, v, lf, ig, *,
+               chunk=64, row=False) -> None:
+    """The mLSTM kernel against its plain version on the card: within
+    MLSTM_TOL of max |plain| (f32 and bf16 inputs), the two mutant plain
+    versions required to miss it (f32, more than one chunk); timed beside
+    the roofline bound (no PyTorch call computes the chunkwise mLSTM)."""
+    from repro_torch.analysis.roofline import mlstm_chunk_roofline
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+
+    run = lambda: mlstm_chunk(q, k, v, lf, ig, chunk=chunk)
+    got = run()
+    with build.plain_versions():
+        want = run()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    misses = []
+    b, h, s, dh = q.shape
+    if q.dtype == torch.float32 and s > chunk:
+        for name, make in MLSTM_MUTANTS:
+            with mutated(SSM_MOD, name, make), build.plain_versions():
+                misses.append(float((got - run()).abs().max()) / scale)
+    ms = cuda_ms(run, iters=10)
+    with build.plain_versions():
+        plain_ms = cuda_ms(run, iters=3, warmup=1)
+    c = min(chunk, s)
+    sp = s + (-s) % c
+    rf = mlstm_chunk_roofline(b=b, h=h, s=sp, dh=dh, chunk=c,
+                              itemsize=q.element_size())
+    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], "fp32")
+    split_ms, _ = bound_ms(rf["flops_dv_split"], rf["bytes"], "fp32")
+    log(f"[mlstm] mlstm_chunk {label} {str(q.dtype)[6:]}: max_abs_err="
+        f"{err} ({err / scale:.3e} of max|plain| {scale:.4g}, tol "
+        f"{MLSTM_TOL}) mutants {['%.3e' % m for m in misses]} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
+        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%; with the "
+        f"dv split's recomputed scores {split_ms:.4f})")
+    if not (err <= MLSTM_TOL * scale and torch.isfinite(got).all()) or \
+            not all(m > MLSTM_TOL for m in misses):
+        raise SystemExit(f"mlstm_chunk {label}: kernel vs plain {err} "
+                         f"(tol {MLSTM_TOL} x {scale}), mutants {misses}")
+    if row:
+        summary["mlstm_chunk"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_compare_mlstm(torch) -> tuple:
+    """Phase 14.  Returns (summary row, launches of the op's own run: its
+    entry point once at the layer shape, counts reset just before)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+
+    summary = {}
+    x = mlstm_inputs(torch, 4, 4, 2048, 384, 0)
+    mlstm_case(torch, build, summary, "layer 4x4x2048 dh384", *x, row=True)
+    mlstm_case(torch, build, summary, "layer 4x4x2048 dh384",
+               *(t.bfloat16() for t in x[:3]), *x[3:])
+    mlstm_case(torch, build, summary, "s2000 (padded)",
+               *(t[:, :, :2000] for t in x))
+    mlstm_case(torch, build, summary, "s17 (< chunk)",
+               *(t[:, :, :17] for t in x))
+    del x
+    mlstm_case(torch, build, summary, "strong gates 2x4x2048",
+               *mlstm_inputs(torch, 2, 4, 2048, 384, 1, strong=True))
+    mlstm_case(torch, build, summary, "i_gate 0 rows 2x4x2048",
+               *mlstm_inputs(torch, 2, 4, 2048, 384, 2, zero_ig=True))
+    x = mlstm_inputs(torch, 1, 4, 32768, 384, 3)
+    mlstm_case(torch, build, summary, "1x4x32768 (prefill_32k)", *x)
+    del x
+    x = mlstm_inputs(torch, 4, 4, 2048, 384, 0)
+    build.reset_launches()
+    out = mlstm_chunk(*x, chunk=64)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    log(f"[mlstm] the op's own run (4x4x2048, dh 384): launches {launches}, "
+        f"output {tuple(out.shape)}")
+    if launches != {"mlstm_chunk": 1}:
+        raise SystemExit(f"mlstm_chunk op launches {launches}")
+    return summary, launches
+
+
+class _capture_scan:
+    """Inside the block, the first call of the model's chunk scan keeps its
+    inputs and its y (the family's own tensors)."""
+
+    def __init__(self):
+        import importlib
+        self.mod = importlib.import_module(SSM_MOD)
+        self.got = None
+
+    def __enter__(self):
+        self.orig = self.mod._mlstm_chunk_scan
+
+        def scan(q, k, v, log_f, i_gate, state, n_state, chunk):
+            out = self.orig(q, k, v, log_f, i_gate, state, n_state, chunk)
+            if self.got is None:
+                self.got = (q, k, v, log_f, i_gate, chunk, out[0])
+            return out
+        self.mod._mlstm_chunk_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._mlstm_chunk_scan = self.orig
+
+
+def phase_prefill_xlstm(torch, card: str, params) -> dict:
+    """Phases 15-16: the prefill step on 4 x 2048 tokens under native_bf16
+    (no kernel on this path: the model's chunk loop is plain PyTorch, as
+    the reference's ``lax.scan``), the kernel on the first mLSTM layer's
+    own q/k/v/gates against that layer's y, a profile, and one fp32
+    forward (TF32 off)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    from repro_torch.launch.step_fns import make_prefill_step
+
+    cfg = get_config(XLSTM)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 2048)).astype(np.int64)).cuda()
+    batch = {"tokens": tokens}
+    step = make_prefill_step(cfg)
+    t_phase = time.perf_counter()
+    with _capture_scan() as cap:
+        step(params, batch)
+    torch.cuda.synchronize()
+    q, k, v, lf, ig, chunk, y = cap.got
+    got = mlstm_chunk(q, k, v, lf, ig, chunk=chunk)
+    scale = float(y.abs().max())
+    err = float((got - y).abs().max())
+    log(f"[xlstm] the kernel on the first mLSTM layer's own tensors "
+        f"{tuple(q.shape)} chunk {chunk}: max_abs_err {err} "
+        f"({err / scale:.3e} of max|y| {scale:.4g}, tol {MLSTM_TOL})")
+    if not err <= MLSTM_TOL * scale:
+        raise SystemExit(f"[xlstm] kernel vs mlstm_block's y: {err}")
+    del cap, q, k, v, lf, ig, y, got
+    build.reset_launches()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    check_launches("xlstm prefill", launches, {})
+    if logits.shape != (4, 2048, cfg.padded_vocab) or \
+            not torch.isfinite(logits).all():
+        raise SystemExit(f"[xlstm] bad logits {tuple(logits.shape)}")
+    ref16 = logits
+    n_it = 2
+    t0 = time.perf_counter()
+    for _ in range(n_it):
+        step(params, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_it
+    log(f"[xlstm] {XLSTM}/native_bf16 prefill on {card}: {1e3 * dt:.1f} ms "
+        f"per 4x2048 prefill, {4 * 2048 / dt:.0f} tokens/s")
+    profile_step(torch, lambda: step(params, batch).sum().item(),
+                 "one 4x2048 native_bf16 prefill step",
+                 ranges=(XLSTM_RANGES, _annotate_xlstm()))
+    f32 = cfg.replace(policy=MatmulPolicy.FP32, compute_dtype="float32")
+    step32 = make_prefill_step(f32)
+    step32(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits32 = step32(params, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rel = float((ref16 - logits32).abs().max() / logits32.abs().max())
+    log(f"[xlstm] {XLSTM}/fp32 prefill (TF32 off): {1e3 * dt:.1f} ms, "
+        f"{4 * 2048 / dt:.0f} tokens/s; native_bf16 logits {rel:.3e} of "
+        "max|logit| from the fp32 ones")
+    if not torch.isfinite(logits32).all():
+        raise SystemExit("[xlstm] fp32 logits not finite")
+    log(f"[xlstm] prefill phases took {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+class _annotate_xlstm:
+    """Inside the block, each mLSTM chunk loop and each sLSTM block runs
+    under ``record_function`` (labels :data:`XLSTM_RANGES`)."""
+
+    def __enter__(self):
+        import importlib
+
+        from torch.profiler import record_function
+
+        def wrap(label, f):
+            def wrapped(*a, **kw):
+                with record_function(label):
+                    return f(*a, **kw)
+            return wrapped
+        self.ssm = importlib.import_module(SSM_MOD)
+        self.tr = importlib.import_module("repro_torch.models.transformer")
+        self.saved = (self.ssm._mlstm_chunk_scan, self.tr.slstm_block)
+        self.ssm._mlstm_chunk_scan = wrap(XLSTM_RANGES[0], self.saved[0])
+        self.tr.slstm_block = wrap(XLSTM_RANGES[1], self.saved[1])
+
+    def __exit__(self, *exc):
+        self.ssm._mlstm_chunk_scan, self.tr.slstm_block = self.saved
+
+
+#: The profiled xLSTM ranges: the mLSTM chunk loops and the sLSTM blocks
+#: (their time loop and their two projections).
+XLSTM_RANGES = ("xlstm::mlstm_chunk_loop", "xlstm::slstm_block")
 
 def main() -> int:
     import torch
@@ -1612,13 +1936,23 @@ def main() -> int:
     phase_compare_lm_gemm(torch)
     summary.update(attn)
     add(decode_launches)
-    granite = granite_params(torch)
+    granite = lm_params(torch)
     add(phase_prefill(torch, card, granite))
     for policy in ("native_bf16", "kom_int14"):
         add(phase_serve_lm(torch, card, granite, policy))
     del granite
     torch.cuda.empty_cache()
     phase_reduced_lm(torch)
+    mlstm, mlstm_launches = phase_compare_mlstm(torch)
+    summary.update(mlstm)
+    add(mlstm_launches)
+    xlstm = lm_params(torch, XLSTM)
+    add(phase_prefill_xlstm(torch, card, xlstm))
+    for policy in ("native_bf16", "kom_int14"):
+        add(phase_serve_lm(torch, card, xlstm, policy, XLSTM))
+    del xlstm
+    torch.cuda.empty_cache()
+    phase_reduced_lm(torch, XLSTM)
     kernels = []
     for name in KERNELS:
         s = summary[name]

@@ -1,7 +1,8 @@
 """Roofline floors on one NVIDIA H100: one conv layer (the port of
-``repro.analysis.roofline``'s ``conv_mult_counts`` / ``conv_layer_roofline``)
-and the two attention kernels (:func:`attention_roofline`,
-:func:`decode_attention_roofline`).
+``repro.analysis.roofline``'s ``conv_mult_counts`` / ``conv_layer_roofline``),
+the two attention kernels (:func:`attention_roofline`,
+:func:`decode_attention_roofline`) and the chunkwise mLSTM
+(:func:`mlstm_chunk_roofline`).
 
 Priced with the H100 SXM's published dense peaks (NVIDIA data sheet):
 int8 tensor-core operations 1,979 TOP/s, bf16 989 TFLOP/s, f32 on the CUDA
@@ -134,3 +135,35 @@ def decode_attention_roofline(*, b, hq, hkv, S, dh, pos,
     memory_s = nbytes / H100["hbm_bw"]
     return {"flops": flops, "bytes": nbytes, "compute_s": compute_s,
             "memory_s": memory_s, "roofline_s": max(compute_s, memory_s)}
+
+
+def mlstm_chunk_roofline(*, b, h, s, dh, chunk, itemsize=4,
+                         dv_tile: int = 64) -> Dict[str, float]:
+    """H100 floor of one chunkwise-mLSTM call on ``s`` (padded) tokens
+    (seconds).
+
+    ``flops``: what the function needs, per (b, h, chunk of C): the causal
+    scores ``2 * C(C+1)/2 * dh`` and y_intra the same, y_inter and the
+    state update ``2*C*dh*dh`` each, the normalizer's ``q . n`` and ``k^T
+    w`` ``2*C*dh`` each; at the f32 CUDA-core peak (the kernel's math is
+    f32 for bf16 inputs too).  ``flops_dv_split``: what the CUDA kernel
+    issues, the full (C x C) score tile and the normalizer recomputed by
+    each of its ``ceil(dh / dv_tile)`` dv tiles.  memory_s: q, k, v read
+    once (``itemsize``), the two f32 gates read once and the f32 y written
+    once, at the HBM rate.  The bound is from ``flops``.
+    """
+    c = chunk
+    nb = b * h * (s // c)
+    tiles = -(-dh // dv_tile)
+    live = c * (c + 1) / 2.0
+    inter = 2.0 * 2 * c * dh * dh          # y_inter + the state update
+    norm = 2.0 * 2 * c * dh                # q . n and k^T w
+    flops = nb * (2.0 * 2 * live * dh + inter + norm)
+    flops_split = nb * (tiles * 2.0 * c * c * dh + 2.0 * c * c * dh + inter
+                        + tiles * norm)
+    nbytes = float(b * h * s * (3 * dh * itemsize + 2 * 4 + 4 * dh))
+    compute_s = flops / H100["peak_fp32"]
+    memory_s = nbytes / H100["hbm_bw"]
+    return {"flops": flops, "flops_dv_split": flops_split, "bytes": nbytes,
+            "compute_s": compute_s, "memory_s": memory_s,
+            "roofline_s": max(compute_s, memory_s)}

@@ -52,6 +52,7 @@ SOURCES = {
     "winograd": "winograd.cu",
     "flash_attention": "flash_attention.cu",
     "flash_decode": "flash_decode.cu",
+    "mlstm_chunk": "mlstm_chunk.cu",
 }
 HEADERS = ("limb_tile.cuh", "float_tile.cuh")
 

@@ -10,6 +10,8 @@
         --conv-path implicit
     python -m repro_torch.launch.serve --arch granite-3-2b \\
         --policy kom_int14 --slots 4 --requests 8
+    python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --policy kom_int14 --slots 4 --requests 8
 
 Runs on the GPU unless ``--device cpu`` is given (and refuses to start
 without one otherwise).  ``--reduced`` serves the CPU-test twin of the
@@ -24,9 +26,10 @@ pins ONE engine for every conv layer instead (it refuses ``--plan`` and
 ``--explore``, and a policy the engine cannot run exactly, as the
 reference launcher does).
 
-LMs (the dense family): ``--slots`` decode slots, ``--max-len`` cache
-length, ``--max-new`` tokens per request; each request's prompt is
-``rng.integers(3, 9)`` random tokens, as in the reference.  ``--policy``
+LMs (the dense and xLSTM families): ``--slots`` decode slots,
+``--max-len`` cache length, ``--max-new`` tokens per request; each
+request's prompt is ``rng.integers(3, 9)`` random tokens, as in the
+reference.  ``--policy``
 defaults to the config's own (``native_bf16``) for an LM and to
 ``kom_int14`` for a CNN.  The multi-model dispatcher and fault injection
 of the reference launcher are not ported yet.

@@ -107,3 +107,23 @@ def gelu_mlp(x, w_up, b_up, w_down, b_down, *,
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
     return dense(h, w_down, policy=policy, bias=b_down)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state=None):
+    """Depthwise causal conv over time: x (b, s, d), w (k, d).
+
+    Prefill (``state=None``): left-pad k-1 zeros.  Decode: ``state`` is the
+    last k-1 inputs (b, k-1, d), prepended.  The taps are summed in tap
+    order; returns (y in x's dtype, the new state = the last k-1 inputs).
+    """
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s, :] * w[0][None, None, :]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s, :] * w[i][None, None, :]
+    new_state = xp[:, -(k - 1):, :] if k > 1 else x[:, :0]
+    return y.to(x.dtype), new_state

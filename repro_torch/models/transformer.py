@@ -1,10 +1,12 @@
-"""Model assembly for the transformer zoo, dense family (the port of
-``repro.models.transformer``).
+"""Model assembly for the transformer zoo, dense and xLSTM (``ssm``)
+families (the port of ``repro.models.transformer``).
 
 Params keep the reference's pytree layout: a dict whose ``"layers"`` leaves
-are STACKED (leading layer axis L), so a test can carry params across as
-they are.  Where the reference scans the stack with ``lax.scan``, the port
-loops over layers in Python (:func:`layer_params` slices one layer).
+(dense) or ``"groups"``/``"b{i}"`` leaves (ssm: one entry per member of the
+(m, m, m, s) group) are STACKED (leading layer or group axis), so a test
+can carry params across as they are.  Where the reference scans the stack
+with ``lax.scan``, the port loops in Python (:func:`layer_params` slices
+one layer or group).
 
 Public API (same names as the reference):
   init_params(cfg, generator)      -> params dict
@@ -12,8 +14,8 @@ Public API (same names as the reference):
   init_cache(cfg, batch, max_len)  -> decode cache dict
   serve_step(params, cfg, cache, tokens, pos, write_mask) -> (logits, cache)
 
-Only ``family="dense"`` runs so far; MoE, VLM, encoder-decoder, hybrid and
-SSM raise ``not_ported`` (ROADMAP.md, Queue 1 item 9), and ``loss_fn``
+The ``dense`` and ``ssm`` families run; MoE, VLM, encoder-decoder and
+hybrid raise ``not_ported`` (ROADMAP.md, Queue 1 item 9), and ``loss_fn``
 waits for the training slice.  Entry points run under
 ``torch.inference_mode()``.
 """
@@ -30,19 +32,21 @@ from .attention import KVCache, attention, attn_init
 from .config import ModelConfig
 from .layers import (apply_norm, dense, embed_init, gelu_mlp, linear_init,
                      norm_init, rms_norm, rope, swiglu)
+from .ssm import (MLSTMState, SLSTMState, mlstm_block, mlstm_init,
+                  slstm_block, slstm_init, slstm_state0)
 
 #: The ROADMAP.md item each family that is not ported yet waits for.
 _FAMILY_ITEM = {
     "moe": "Queue 1 item 9: the MoE family (models/moe.py)",
     "vlm": "Queue 1 item 9: the VLM family",
     "encdec": "Queue 1 item 9: the encoder-decoder family",
-    "hybrid": "Queue 1 item 9: the hybrid family (models/ssm.py)",
-    "ssm": "Queue 1 item 9: the xLSTM/SSM family and _mlstm_kernel",
+    "hybrid": "Queue 1 item 9: the hybrid family (RG-LRU in models/ssm.py)",
 }
+_PORTED = ("dense", "ssm")
 
 
-def _require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family == "dense":
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if cfg.family in _PORTED:
         return
     if cfg.family in _FAMILY_ITEM:
         raise not_ported(f"{what} for family {cfg.family!r}",
@@ -50,20 +54,25 @@ def _require_dense(cfg: ModelConfig, what: str) -> None:
     raise ValueError(cfg.family)
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def map_tree(fn, *trees):
+    """``fn`` over the matching leaves of param or cache trees (dicts and
+    NamedTuples of tensors or QWeights), as ``jax.tree.map`` walks them."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple):
+        return type(t0)(*(map_tree(fn, *xs) for xs in zip(*trees)))
+    return fn(*trees)
 
 
 def layer_params(stacked, i: int):
     """Layer ``i`` of a stacked param tree (tensors and QWeights)."""
-    return _map_tree(lambda t: t[i], stacked)
+    return map_tree(lambda t: t[i], stacked)
 
 
 def params_to(params, device):
     """Every tensor / QWeight of a param tree moved to ``device``."""
-    return _map_tree(lambda t: t.to(device), params)
+    return map_tree(lambda t: t.to(device), params)
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +82,10 @@ def params_to(params, device):
 def _stacked_init(fn, n: int, device):
     """``fn()`` drawn ``n`` times, stacked on a leading axis in place (one
     layer of scratch, not a second copy of the stack)."""
-    first = _map_tree(lambda t: t.to(device), fn())
-    out = _map_tree(lambda t: torch.empty((n,) + tuple(t.shape),
-                                          dtype=t.dtype, device=device),
-                    first)
+    first = map_tree(lambda t: t.to(device), fn())
+    out = map_tree(lambda t: torch.empty((n,) + tuple(t.shape),
+                                         dtype=t.dtype, device=device),
+                   first)
 
     def put(dst, src, i):
         if isinstance(dst, dict):
@@ -114,6 +123,14 @@ def _dense_layer_init(gen, cfg, dtype):
     return p
 
 
+def _xlstm_block_init(gen, cfg, kind, dtype):
+    return {
+        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, gen.device),
+        "mixer": (mlstm_init(gen, cfg, dtype) if kind == "m"
+                  else slstm_init(gen, cfg, dtype)),
+    }
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device=None) -> Dict[str, Any]:
@@ -121,7 +138,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     ``generator`` on its own device and placed on ``device`` (default: the
     GPU, see resolve_device).  A CUDA generator draws full-width weights
     on the card directly."""
-    _require_dense(cfg, "init_params")
+    _require_ported(cfg, "init_params")
     dev = resolve_device(device)
     dtype = cfg.pdtype
     params: Dict[str, Any] = {
@@ -132,6 +149,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(generator, cfg.d_model,
                                         cfg.padded_vocab, dtype).to(dev)
+    if cfg.family == "ssm":
+        params["groups"] = {
+            f"b{i}": _stacked_init(
+                lambda kind=kind: _xlstm_block_init(generator, cfg, kind,
+                                                    dtype),
+                cfg.n_xlstm_groups, dev)
+            for i, kind in enumerate(cfg.xlstm_group)}
+        return params
     params["layers"] = _stacked_init(
         lambda: _dense_layer_init(generator, cfg, dtype), cfg.n_layers, dev)
     return params
@@ -213,13 +238,42 @@ def _dense_stack_forward(params, cfg, x, positions, *, collect_kv=False):
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any]):
     """Prefill forward: ``batch["tokens"]`` (b, s) -> (f32 logits (b, s, V),
     aux)."""
-    _require_dense(cfg, "forward")
+    _require_ported(cfg, "forward")
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens.long())
+    if cfg.family == "ssm":
+        x, _ = _xlstm_stack(params, cfg, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return _lm_logits(params, cfg, x), aux
     positions = torch.arange(s, device=x.device)
     x, aux, _ = _dense_stack_forward(params, cfg, x, positions)
     return _lm_logits(params, cfg, x), aux
+
+
+def _xlstm_stack(params, cfg, x, states=None):
+    """The xLSTM groups, a Python loop over groups and their members.
+
+    ``states`` None: prefill from fresh states (returns no states).  Else
+    the decode cache's ``groups`` (leaves (G, b, ...)); returns the new
+    states in the same layout.
+    """
+    new = {f"b{i}": [] for i in range(len(cfg.xlstm_group))}
+    for g in range(cfg.n_xlstm_groups):
+        for i, kind in enumerate(cfg.xlstm_group):
+            name = f"b{i}"
+            bp = layer_params(params["groups"][name], g)
+            st = None if states is None else \
+                type(states[name])(*(t[g] for t in states[name]))
+            hn = apply_norm(x, bp["norm1"], cfg.norm)
+            block = mlstm_block if kind == "m" else slstm_block
+            m, st = block(bp["mixer"], hn, cfg, state=st)
+            x = x + m
+            new[name].append(st)
+    if states is None:
+        return x, None
+    return x, {name: type(sts[0])(*(torch.stack(f) for f in zip(*sts)))
+               for name, sts in new.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -228,13 +282,37 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any]):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None):
-    """Zeroed KV cache {"kv": KVCache((L, b, hkv, max_len, dh) x 2)}."""
-    _require_dense(cfg, "init_cache")
+    """Dense: a zeroed KV cache {"kv": KVCache((L, b, hkv, max_len, dh) x
+    2)}.  ssm: {"groups": {"b{i}": MLSTMState | SLSTMState}}, leaves (G, b,
+    ...), zero but the sLSTM normalizer, which starts at ones (``max_len``
+    is not used: the state has no positions)."""
+    _require_ported(cfg, "init_cache")
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
+    if cfg.family == "ssm":
+        return {"groups": _xlstm_cache(cfg, batch, dtype, dev)}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"kv": KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                           torch.zeros(shape, dtype=dtype, device=dev))}
+
+
+def _xlstm_cache(cfg, batch, dtype, dev):
+    g, d = cfg.n_xlstm_groups, cfg.d_model
+    di, h = 2 * d, cfg.n_heads
+    dh = di // h
+    f32 = torch.float32
+    groups = {}
+    for i, kind in enumerate(cfg.xlstm_group):
+        if kind == "m":
+            groups[f"b{i}"] = MLSTMState(
+                torch.zeros((g, batch, h, dh, dh), dtype=f32, device=dev),
+                torch.zeros((g, batch, h, dh), dtype=f32, device=dev),
+                torch.zeros((g, batch, 3, di), dtype=dtype, device=dev))
+        else:
+            groups[f"b{i}"] = SLSTMState(*(
+                t[None].expand(g, batch, d).clone()
+                for t in slstm_state0(1, d, dev)))
+    return groups
 
 
 @torch.inference_mode()
@@ -255,21 +333,24 @@ def serve_step(params, cfg: ModelConfig, cache, tokens, pos,
                                device=logits.device)
 
         def keep(new, old):
-            # every cache leaf carries batch on axis 1: (L, b, ...)
+            # every cache/state leaf carries batch on axis 1:
+            # (n_layers|n_groups, b, ...) -- masked rows keep the old value
             m = mask.reshape((1, -1) + (1,) * (new.ndim - 2))
             return torch.where(m, new, old)
 
-        kv, old = new_cache["kv"], cache["kv"]
-        new_cache = {"kv": KVCache(keep(kv.k, old.k), keep(kv.v, old.v))}
+        new_cache = map_tree(keep, new_cache, cache)
     return logits, new_cache
 
 
 def _serve_step_all_rows(params, cfg: ModelConfig, cache, tokens, pos):
-    _require_dense(cfg, "serve_step")
+    _require_ported(cfg, "serve_step")
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens.long())
+    if cfg.family == "ssm":
+        x, groups = _xlstm_stack(params, cfg, x, cache["groups"])
+        return _lm_logits(params, cfg, x), {"groups": groups}
     positions = pos + torch.arange(s, device=x.device)
     kv = cache["kv"]
     nk, nv = torch.empty_like(kv.k), torch.empty_like(kv.v)

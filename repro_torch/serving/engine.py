@@ -107,11 +107,14 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _reset_rows(self, mask: torch.Tensor) -> None:
+        """Every cache leaf's rows in ``mask`` back to the pristine cache: a
+        reused slot must not leak the previous occupant's state (position
+        masking hides stale KV rows, but mLSTM/sLSTM state has no position,
+        and the sLSTM normalizer starts at ones, not zeros)."""
         def reset(a, a0):
             return torch.where(mask.reshape((1, -1) + (1,) * (a.ndim - 2)),
                                a0, a)
-        kv, kv0 = self.cache["kv"], self._cache0["kv"]
-        self.cache = {"kv": type(kv)(reset(kv.k, kv0.k), reset(kv.v, kv0.v))}
+        self.cache = transformer.map_tree(reset, self.cache, self._cache0)
 
     # -- admission -----------------------------------------------------------
 

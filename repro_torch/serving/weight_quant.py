@@ -24,9 +24,12 @@ def quantize_params_inline(params, *, base_bits: int = 7,
     """One quantization pass: matmul leaves -> cached QWeight.
 
     The returned tree has the same structure as ``params``.  Matmul leaves
-    are (..., k, n); any extra leading axes are layer stacks and survive in
-    the scale (``stack_axes = ndim - 2``), so the QWeight still slices per
-    layer.  Scales are the eager true division, as the reference quantizes
+    are (..., k, n); any extra leading axes are layer or group stacks and
+    survive in the scale (``stack_axes = ndim - 2``), so the QWeight still
+    slices per layer.  In an xLSTM tree (``groups``/``b{i}``/``mixer``)
+    that is ``w_up``, ``w_gate``, ``wq``, ``wk``, ``wv``, ``w_in`` and
+    ``w_down``; ``w_if``, ``conv_w``, ``r``, ``b`` and the norms stay
+    float (``w_if`` and a tied head then run ``kom_q_dot``).  Scales are the eager true division, as the reference quantizes
     outside ``jit`` at engine build.
     """
     def q(name, leaf):

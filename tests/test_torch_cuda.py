@@ -518,3 +518,124 @@ def test_reduced_lm_flash_forward_on_card_matches_cpu(dev, arch):
     assert build.launch_counts() == {"flash_attention": cfg.n_layers}
     err = float((got.cpu() - want).abs().max() / want.abs().max())
     assert err <= 1e-5, err
+
+
+# The chunkwise mLSTM kernel against its plain version (the model's chunk
+# loop, f32).  Both run f32 arithmetic with sums in other orders; the
+# plain version is the noisier of the two (on an H100 at 4 x 2048, dh 384
+# it lies ~9e-6 of max|y| from an f64 run, the kernel ~3e-6), so the
+# kernel is held to max|kernel - plain| <= MLSTM_TOL * max|plain|, which
+# the plain version with the causal mask's diagonal dropped, or with the
+# state written without the input gate, must miss.  bf16 inputs are cast
+# to f32 exactly on both sides and the output is f32, so the same
+# tolerance holds.
+
+MLSTM_TOL = 2e-5
+SSM_MOD = "repro_torch.models.ssm"
+
+
+def _mlstm_inputs(b, h, s, dh, dev, seed, strong=False, zero_ig=False):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, h, s, dh), generator=g)
+    k = torch.randn((b, h, s, dh), generator=g) * 0.3
+    v = torch.randn((b, h, s, dh), generator=g)
+    lf = torch.log(torch.rand((b, h, s), generator=g) * 0.29 + 0.7)
+    if strong:      # cumulative decays pass the -60 clip within a chunk
+        lf = lf - 5.0
+    ig = torch.rand((b, h, s), generator=g) * 0.8 + 0.1
+    if zero_ig:
+        ig[:, :, ::3] = 0.0
+    return [t.to(dev) for t in (q, k, v, lf, ig)]
+
+
+def _mlstm_vs_plain(run, mutants=()):
+    build.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {"mlstm_chunk": 1}
+    with build.plain_versions():
+        want = run()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= MLSTM_TOL, err
+    for mutant in mutants:
+        with mutant, build.plain_versions():
+            bad = run()
+        miss = float((got - bad).abs().max() / bad.abs().max())
+        assert miss > MLSTM_TOL, miss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dh,chunk,kw", [
+    (2, 2, 64, 16, 16, {}),
+    (1, 4, 128, 32, 64, {}),
+    (1, 2, 100, 16, 32, {}),                  # padded
+    (2, 1, 32, 64, 8, {}),                    # chunk 8
+    (1, 2, 200, 128, 64, {}),                 # padded, dh 128
+    (1, 2, 17, 384, 64, {}),                  # s < chunk: one chunk of 17
+    (2, 4, 300, 384, 64, {"strong": True}),   # decays past the clip
+    (2, 2, 256, 96, 64, {"zero_ig": True}),   # a ragged dv tile, i = 0 rows
+    (1, 1, 64, 512, 32, {}),                  # the largest dh
+])
+def test_mlstm_kernel_equals_plain(dev, b, h, s, dh, chunk, kw):
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+    q, k, v, lf, ig = _mlstm_inputs(b, h, s, dh, dev, b + h + s + dh, **kw)
+    mutants = (
+        _mutated(SSM_MOD, "causal_mask", lambda orig: lambda c, d: torch.tril(
+            torch.ones((c, c), dtype=torch.bool, device=d), diagonal=-1)),
+        _mutated(SSM_MOD, "state_write_weights",
+                 lambda orig: lambda ltot, lcum, i: orig(ltot, lcum,
+                                                         torch.ones_like(i))))
+    _mlstm_vs_plain(lambda: mlstm_chunk(q, k, v, lf, ig, chunk=chunk),
+                    mutants if s > chunk else mutants[:1])
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    _mlstm_vs_plain(lambda: mlstm_chunk(qb, kb, vb, lf, ig, chunk=chunk))
+
+
+@pytest.mark.cuda
+def test_mlstm_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_raw
+    q, k, v, lf, ig = _mlstm_inputs(1, 1, 128, 16, dev, 0)
+    with pytest.raises(ValueError, match="chunk <= 64"):
+        mlstm_chunk_raw(q, k, v, lf, ig, chunk=128)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        mlstm_chunk_raw(q.half(), k.half(), v.half(), lf, ig, chunk=64)
+    with pytest.raises(ValueError, match="f32 gates"):
+        mlstm_chunk_raw(q, k, v, lf.double(), ig, chunk=64)
+    q, k, v, lf, ig = _mlstm_inputs(1, 1, 8, 520, dev, 0)
+    with pytest.raises(ValueError, match="dh <= 512"):
+        mlstm_chunk_raw(q, k, v, lf, ig, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp32", "kom_int14"])
+def test_reduced_xlstm_on_card_matches_cpu(dev, policy):
+    """Reduced xlstm-125m: the forward and four decode steps on the card
+    within 1e-5 (fp32) / 2e-3 (kom_int14: an ulp can move a 14-bit level)
+    of max|logit| of the CPU plain versions.  Under kom_int14 the weights
+    are quantized once, as the serving engine quantizes them (chip_smoke's
+    reduced phase does the same)."""
+    from repro_torch.models import transformer
+    from repro_torch.serving.weight_quant import quantize_params_inline
+    cfg = reduced(get_config("xlstm-125m")).replace(
+        policy=MatmulPolicy(policy), compute_dtype="float32")
+    tol = 1e-5 if policy == "fp32" else 2e-3
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(2),
+                                     device="cpu")
+    if policy == "kom_int14":
+        params = quantize_params_inline(params)
+    gp = transformer.params_to(params, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(3))
+    want, _ = transformer.forward(params, cfg, {"tokens": tokens})
+    got, _ = transformer.forward(gp, cfg, {"tokens": tokens.to(dev)})
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= tol
+    cache = transformer.init_cache(cfg, 2, 8, device="cpu")
+    gcache = transformer.init_cache(cfg, 2, 8, device=dev)
+    for t in range(4):
+        w, cache = transformer.serve_step(params, cfg, cache,
+                                          tokens[:, t:t + 1], t)
+        g, gcache = transformer.serve_step(gp, cfg, gcache,
+                                           tokens[:, t:t + 1].to(dev), t)
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) <= tol

@@ -52,6 +52,7 @@ from repro_torch.core.substrate import QWeight  # noqa: E402
 from repro_torch.launch import step_fns  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.weight_quant import quantize_params_inline  # noqa: E402
 
@@ -129,8 +130,7 @@ def test_registry_matches_reference():
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "internvl2-26b",
-                                  "whisper-large-v3", "recurrentgemma-9b",
-                                  "xlstm-125m"])
+                                  "whisper-large-v3", "recurrentgemma-9b"])
 def test_other_families_raise_not_ported(arch):
     cfg = reduced(get_config(arch))
     gen = torch.Generator().manual_seed(0)
@@ -348,6 +348,41 @@ def test_write_mask_protects_other_rows():
     assert (raw["kv"].k[:, 0, :, 0] - kv.k[:, 0, :, 0]).abs().sum() > 0
 
 
+def test_cache_tree_maps_cover_every_leaf():
+    """``serve_step``'s write mask and ``ServeEngine._reset_rows`` walk every
+    cache leaf -- dicts and NamedTuples, the dense ``kv`` and the xLSTM
+    ``groups`` alike -- as the reference's ``jax.tree.map`` does: masked
+    rows keep their old value; a reset row returns to the pristine cache
+    (the sLSTM normalizer to ones, not zeros)."""
+    from repro_torch.models.ssm import MLSTMState, SLSTMState
+
+    def tree(fill):
+        full = lambda *shape: torch.full(shape, float(fill))
+        return {"kv": KVCache(full(2, 3, 1, 4, 2), full(2, 3, 1, 4, 2)),
+                "groups": {"b0": MLSTMState(full(1, 3, 2, 4, 4),
+                                            full(1, 3, 2, 4),
+                                            full(1, 3, 3, 8)),
+                           "b1": SLSTMState(full(1, 3, 8), full(1, 3, 8),
+                                            full(1, 3, 8) * 0 + 1)}}
+    mask = torch.tensor([True, False, True])
+    m = lambda a: mask.reshape((1, -1) + (1,) * (a.ndim - 2))
+    kept = T.map_tree(lambda new, old: torch.where(m(new), new, old),
+                       tree(7), tree(5))
+    leaves = [kept["kv"].k, kept["kv"].v, *kept["groups"]["b0"],
+              *kept["groups"]["b1"][:2]]
+    assert type(kept["groups"]["b1"]) is SLSTMState and len(leaves) == 7
+    for leaf in leaves:
+        assert (leaf[:, 0] == 7).all() and (leaf[:, 1] == 5).all()
+    eng = ServeEngine.__new__(ServeEngine)
+    eng.cache, eng._cache0 = tree(9), tree(0)
+    eng._reset_rows(torch.tensor([False, True, False]))
+    n = eng.cache["groups"]["b1"].n
+    assert (n[:, 1] == 1).all() and (n[:, 0] == 1).all()
+    for leaf in (eng.cache["kv"].k, *eng.cache["groups"]["b0"],
+                 eng.cache["groups"]["b1"].h):
+        assert (leaf[:, 1] == 0).all() and (leaf[:, 0] == 9).all()
+
+
 # -- the serving engine ---------------------------------------------------------
 
 def _port_engine_tokens(cfg, tp, prompts, max_new, slots=2, max_len=32):
@@ -475,7 +510,9 @@ def test_importing_the_lm_side_loads_no_jax():
     code = ("import sys, repro_torch.models.transformer,"
             " repro_torch.serving.engine, repro_torch.launch.step_fns,"
             " repro_torch.kernels.flash_attention,"
-            " repro_torch.kernels.flash_decode, repro_torch.configs;"
+            " repro_torch.kernels.flash_decode, repro_torch.configs,"
+            " repro_torch.models.ssm, repro_torch.kernels.mlstm_chunk,"
+            " repro_torch.analysis.roofline;"
             " bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
             " or m.startswith(('jax.', 'repro.'))];"
             " assert not bad, bad")

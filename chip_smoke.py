@@ -38,8 +38,10 @@ Phases, each fatal on failure:
    difference 0), the float conv kernel (``native``, which the systolic
    engine's ``native`` variant shares, ``bf16x3``, ``bf16x6``) and the
    bf16-limb GEMM (passes 3/4/6) against their plain versions on the card
-   (TF32 off) at every full-width VGG16 conv geometry and FC shape (batch
-   8), the integer systolic also at AlexNet conv2 (batch 16).  A float
+   (TF32 off) at every full-width VGG16 conv geometry (batch 8) and FC
+   shape (the GEMM at 1, 4 and 8 rows; the JSON line's row sums the
+   bf16x3 calls at 8), the integer systolic also at AlexNet conv2 (batch
+   16).  A float
    plain version is its schedule's exact value rounded once, so a float
    row must satisfy ``max|kernel - plain| <= 1e-6 * max|plain|`` while the
    plain version of the neighbouring schedule (bf16x3 for native, bf16x4
@@ -67,17 +69,22 @@ Phases, each fatal on failure:
    can move its low bf16 limb by 2^7 times more, so ulp-level differences
    between layers grow to the size of the schedule's own error; phase 7
    holds the schedule itself;
-10. hold the flash-attention kernel against its plain version on the card
-    at one full-width granite-3-2b prefill layer (b 4, hq 32, hkv 8, sq =
-    skv = 2048, dh 64, causal) in f32 and bf16, at sq 256 with q_offset
-    1792, with window 512 and at sq = skv = 1000 (padded); the flash-decode
-    kernel at b 8, hq 32, hkv 8, S 4096, dh 64, pos 0/1000/4095 (f32, and
-    bf16 at 4095) and S 4000 (padded).  f32 within ATTN_TOL_F32 with the
-    mutant plain version (causal ``>`` for ``>=``; decode ``<`` for
-    ``<=``) required to miss it, bf16 within ATTN_TOL_BF16; timed beside
+10. count the tensor-core instructions (``HGMMA``, ``HMMA``) in the
+    flash-attention library's SASS (``cuobjdump -sass``; the bf16 kernel
+    must issue wgmma), then hold the flash-attention kernel against its
+    plain version on the card at one full-width granite-3-2b prefill layer
+    (b 4, hq 32, hkv 8, sq = skv = 2048, dh 64, causal), at sq 256 with
+    q_offset 1792 and with window 512, each in f32 and bf16, and at sq =
+    skv = 1000 (padded); the flash-decode kernel at b 8, hq 32, hkv 8, S
+    4096, dh 64, pos 0/1000/4095 (f32, and bf16 at 4095) and S 4000
+    (padded).  f32 within ATTN_TOL_F32 and bf16 within ATTN_TOL_BF16, the
+    mutant plain version (causal ``>`` for ``>=``; decode ``<`` for ``<=``)
+    required to miss the tolerance (f32; bf16 where q_offset is 0, so that
+    the first row's only key is the one the mutant drops); timed beside
     ``F.scaled_dot_product_attention`` with the same mask (a yardstick the
-    port never calls) and the ``analysis/roofline`` bound; then the decode
-    op's own run (its entry point, no model calls it);
+    port never calls) and the ``analysis/roofline`` bound (bf16 inputs at
+    the bf16 peak); then the decode op's own run (its entry point, no
+    model calls it);
 11. full-width granite-3-2b (40 layers, random weights, seed 0): the
     prefill step (``make_prefill_step``, ``use_flash_kernel=True``) on 4 x
     2048 tokens under ``native_bf16`` -- 40 flash-attention launches per
@@ -115,7 +122,10 @@ Phases, each fatal on failure:
     limb-GEMM launches per serve_step under ``kom_int14``);
 18. reduced xlstm-125m under ``fp32`` and ``kom_int14``: the forward and
     four decode steps on the card within REDUCED_TOL_FP32 /
-    REDUCED_TOL_KOM of the CPU plain versions;
+    REDUCED_TOL_KOM of the CPU plain versions, and ``kom_int14`` on float
+    weights (``kom_q_dot`` per tensor) within the measured
+    ``analysis/kom_float_weights.FLOAT_WEIGHTS_TOL``, which the card's
+    ``base_bits=6`` forward must miss;
 19. print the card line, a ``kernels`` JSON line (launches: the serving
     runs, the fp32 yardstick forward, the granite prefill forward and the
     two ops' own runs, each counted from 0) and, last,
@@ -210,6 +220,8 @@ VGG16_HANDOFF = ((112, 64, 128), (56, 128, 256), (28, 256, 512),
 #: Full-width VGG16's FC layers, (k, n).
 VGG16_FC = (("fc6", (25088, 4096)), ("fc7", (4096, 4096)),
             ("fc8", (4096, 1000)))
+#: The bf16-limb GEMM's compare rows: one request, half a batch, a batch.
+GEMM_ROWS = (1, 4, VGG_BATCH)
 
 
 def log(msg: str) -> None:
@@ -618,19 +630,22 @@ def systolic_float_calls(torch, gen, dev) -> list:
                           "fp32" if variant == "native" else "bf16",
                           FLOAT_TOL, lib_ms, True,
                           run_for(NEIGHBOUR[variant])))
-    for label, (k, n) in VGG16_FC:
-        m = VGG_BATCH
-        a, b = torch.relu(randn((m, k))), randn((k, n), k ** -0.5)
-        lib_ms = cuda_ms(lambda a=a, b=b: torch.matmul(a, b), iters=10)
-        for passes in (3, 4, 6):
-            run = (lambda a=a, b=b, p=passes: bf16x3_matmul(a, b, passes=p))
-            nb = {3: 1, 4: 3, 6: 3}[passes]   # native f32, bf16x3, bf16x3
-            control = (lambda a=a, b=b, q=nb:
-                       schedule_dot(a, b, passes=q).float())
-            calls.append(("bf16_matmul", f"bf16x{passes}", label, run,
-                          2.0 * m * k * n * passes,
-                          4 * (m * k + k * n + m * n), "bf16", FLOAT_TOL,
-                          lib_ms, passes == 3, control))
+    for m in GEMM_ROWS:
+        for label, (k, n) in VGG16_FC:
+            a, b = torch.relu(randn((m, k))), randn((k, n), k ** -0.5)
+            lib_ms = cuda_ms(lambda a=a, b=b: torch.matmul(a, b), iters=10)
+            for passes in (3, 4, 6):
+                run = (lambda a=a, b=b, p=passes:
+                       bf16x3_matmul(a, b, passes=p))
+                nb = {3: 1, 4: 3, 6: 3}[passes]  # native f32, bf16x3, bf16x3
+                control = (lambda a=a, b=b, q=nb:
+                           schedule_dot(a, b, passes=q).float())
+                calls.append(("bf16_matmul", f"bf16x{passes}",
+                              f"{label} m{m}", run,
+                              2.0 * m * k * n * passes,
+                              4 * (m * k + k * n + m * n), "bf16", FLOAT_TOL,
+                              lib_ms, passes == 3 and m == VGG_BATCH,
+                              control))
     return calls
 
 
@@ -642,13 +657,19 @@ def phase_compare_systolic_float(torch) -> dict:
     from repro_torch.kernels import build
 
     gen = torch.Generator().manual_seed(3)
-    summary, schoolbook_ms = {}, 0.0
+    summary, schoolbook_ms, gemm = {}, 0.0, {}
     for (name, policy, label, run, ops, nbytes, kind, tol, lib_ms,
          summed, control) in systolic_float_calls(torch, gen,
                                                   torch.device("cuda")):
         err, ms, plain_ms = compare_call(torch, build, policy, name, label,
                                          run, ops, nbytes, lib_ms, kind, tol,
                                          control)
+        if name == "bf16_matmul":
+            t = gemm.setdefault((policy, label.split(" m")[1]),
+                                [0.0, 0.0, 0.0])
+            t[0] += ms
+            t[1] += lib_ms
+            t[2] += bound_ms(ops, nbytes, kind)[0]
         if summed:
             add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
                         lib_ms, lib_ms is not None, kind)
@@ -658,6 +679,9 @@ def phase_compare_systolic_float(torch) -> dict:
                 s["max_abs_err"] = max(s["max_abs_err"], err)
             if policy == "schoolbook_int16" and label.startswith("v"):
                 schoolbook_ms += ms
+    for (policy, m), (ms, lib_ms, b_ms) in gemm.items():
+        log(f"[compare] bf16_matmul {policy} m={m} over fc6+fc7+fc8: "
+            f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f}")
     log(f"[compare] systolic_conv schoolbook_int16: {schoolbook_ms:.4f} ms "
         "over the VGG16 geometries; the integer systolic conv has no single "
         "PyTorch call computing the same quantized limb arithmetic: "
@@ -1227,8 +1251,9 @@ def sdpa_ms(torch, q, k, v, mask) -> float:
 def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
                    window=None, q_offset=0, row=False) -> None:
     """The flash-attention kernel against its plain version on the card:
-    f32 within ATTN_TOL_F32 with the strict-causal mutant required to miss
-    it, bf16 within ATTN_TOL_BF16; timed beside SDPA and the roofline."""
+    f32 within ATTN_TOL_F32, bf16 within ATTN_TOL_BF16, the strict-causal
+    mutant required to miss the tolerance (f32; bf16 at q_offset 0); timed
+    beside SDPA and the roofline (bf16 inputs at the bf16 peak)."""
     from repro_torch.analysis.roofline import attention_roofline
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1241,10 +1266,10 @@ def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
     tol = ATTN_TOL_F32 if f32 else ATTN_TOL_BF16
     err = float((got.float() - want.float()).abs().max())
     miss = None
-    if f32:
+    if causal and (f32 or q_offset == 0):  # bf16: only where row 0 is short
         with mutated(FA_MOD, "live_mask", strict_causal), \
                 build.plain_versions():
-            miss = float((got - run()).abs().max())
+            miss = float((got.float() - run().float()).abs().max())
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     pos = torch.arange(sq, device=q.device)[:, None] + q_offset
@@ -1259,11 +1284,12 @@ def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
     rf = attention_roofline(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, dh=dh,
                             causal=causal, window=window, q_offset=q_offset,
                             itemsize=q.element_size())
-    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], "fp32")
+    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], rf["kind"])
     log(f"[attention] flash_attention {label} {str(q.dtype)[6:]}: "
         f"max_abs_err={err} (tol {tol}) mutant_err={miss} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%)")
+        f"bound_ms={b_ms:.4f} ({b_by}, {rf['kind']}, "
+        f"{100 * b_ms / ms:.1f}%)")
     if not (err <= tol and torch.isfinite(got.float()).all()) or \
             (miss is not None and not miss > tol):
         raise SystemExit(f"flash_attention {label}: kernel vs plain "
@@ -1301,11 +1327,12 @@ def decode_case(torch, build, summary, label, q, k, v, pos, row=False):
     lib_ms = sdpa_ms(torch, q, k, v, mask)
     rf = decode_attention_roofline(b=b, hq=hq, hkv=hkv, S=S, dh=dh, pos=pos,
                                    itemsize=q.element_size())
-    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], "fp32")
+    b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], rf["kind"])
     log(f"[attention] flash_decode {label} {str(q.dtype)[6:]}: "
         f"max_abs_err={err} (tol {tol}) mutant_err={miss} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%)")
+        f"bound_ms={b_ms:.4f} ({b_by}, {rf['kind']}, "
+        f"{100 * b_ms / ms:.1f}%)")
     if not (err <= tol and torch.isfinite(got.float()).all()) or \
             (miss is not None and not miss > tol):
         raise SystemExit(f"flash_decode {label}: kernel vs plain {err} "
@@ -1326,13 +1353,21 @@ def phase_compare_attention(torch) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
     summary = {}
+    tc = {op: build.sass_count("flash_attention", op)
+          for op in ("HGMMA", "HMMA")}
+    log(f"[attention] tensor-core instructions in the flash_attention "
+        f"library's SASS (cuobjdump -sass): {tc}")
+    if not tc["HGMMA"]:
+        raise SystemExit("[attention] the bf16 kernel issues no wgmma")
     q, k, v = rnd(4, 32, 2048, 64), rnd(4, 8, 2048, 64), rnd(4, 8, 2048, 64)
     attention_case(torch, build, summary, "prefill 4x2048", q, k, v)
     attention_case(torch, build, summary, "prefill 4x2048",
                    *(t.bfloat16() for t in (q, k, v)), row=True)
-    attention_case(torch, build, summary, "sq256@1792", q[:, :, -256:], k, v,
-                   q_offset=1792)
-    attention_case(torch, build, summary, "window512", q, k, v, window=512)
+    for qq, kk, vv in ((q, k, v), tuple(t.bfloat16() for t in (q, k, v))):
+        attention_case(torch, build, summary, "sq256@1792", qq[:, :, -256:],
+                       kk, vv, q_offset=1792)
+        attention_case(torch, build, summary, "window512", qq, kk, vv,
+                       window=512)
     attention_case(torch, build, summary, "padded 1000", q[:, :, :1000],
                    k[:, :, :1000], v[:, :, :1000])
     del q, k, v
@@ -1596,24 +1631,31 @@ def phase_serve_lm(torch, card: str, params, policy: str,
 
 def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
     """Phases 13 and 18: reduced ``arch`` (granite: flash kernel on) under
-    fp32 and kom_int14 (f32 compute): the forward and four decode steps on
-    the card against the plain versions on the CPU (which the CPU tests
-    hold against the JAX reference)."""
+    fp32 and kom_int14 (f32 compute, weights quantized once as the engine
+    does): the forward and four decode steps on the card against the plain
+    versions on the CPU (which the CPU tests hold against the JAX
+    reference); for the xLSTM also kom_int14 on float weights (both
+    operands quantized per tensor, ``kom_q_dot``) within FLOAT_WEIGHTS_TOL,
+    with the card's ``base_bits=6`` forward required to miss it."""
+    from repro_torch.analysis.kom_float_weights import (FLOAT_WEIGHTS_TOL,
+                                                        base_bits)
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.precision import MatmulPolicy
     from repro_torch.kernels import build
     from repro_torch.models import transformer
+    from repro_torch.serving.weight_quant import quantize_params_inline
 
-    for policy, tol in (("fp32", REDUCED_TOL_FP32),
-                        ("kom_int14", REDUCED_TOL_KOM)):
+    cases = [("fp32", REDUCED_TOL_FP32, False),
+             ("kom_int14", REDUCED_TOL_KOM, False)]
+    if arch == XLSTM:
+        cases.append(("kom_int14", FLOAT_WEIGHTS_TOL, True))
+    for policy, tol, float_weights in cases:
         cfg = reduced(get_config(arch)).replace(
             policy=MatmulPolicy(policy), compute_dtype="float32",
-            use_flash_kernel=arch != "xlstm-125m")
+            use_flash_kernel=arch != XLSTM)
         params = transformer.init_params(
             cfg, torch.Generator().manual_seed(2), device="cpu")
-        if policy == "kom_int14":
-            from repro_torch.serving.weight_quant import \
-                quantize_params_inline
+        if policy == "kom_int14" and not float_weights:
             params = quantize_params_inline(params)
         gp = transformer.params_to(params, "cuda")
         tokens = torch.randint(0, cfg.vocab_size, (2, 40),
@@ -1633,16 +1675,26 @@ def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
                                                tokens[:, t:t + 1].cuda(), t)
             drel = max(drel, float((g.cpu() - w).abs().max()
                                    / w.abs().max()))
-        log(f"[reduced_lm] {arch} (reduced) {policy}: card vs CPU "
+        what = policy + (" float weights" if float_weights else "")
+        miss = None
+        if float_weights:
+            with base_bits(6):
+                bad, _ = transformer.forward(gp, cfg,
+                                             {"tokens": tokens.cuda()})
+            miss = float((bad.cpu() - want).abs().max() / want.abs().max())
+        log(f"[reduced_lm] {arch} (reduced) {what}: card vs CPU "
             f"forward {rel:.3e}, decode {drel:.3e} (tol {tol}), forward "
-            f"launches {launches}")
+            f"launches {launches}"
+            + ("" if miss is None else
+               f"; base_bits=6 on the card {miss:.3e} away (must miss)"))
         want_l = {"flash_attention": cfg.n_layers} \
             if cfg.use_flash_kernel else {}
         if policy == "kom_int14":
             want_l["kom_matmul"] = limb_gemms_per_step(cfg)
-        if launches != want_l or not (rel <= tol and drel <= tol):
-            raise SystemExit(f"[reduced_lm] {policy}: {rel}, {drel}, "
-                             f"{launches}")
+        if launches != want_l or not (rel <= tol and drel <= tol) or \
+                (miss is not None and not miss > tol):
+            raise SystemExit(f"[reduced_lm] {what}: {rel}, {drel}, "
+                             f"{launches}, control {miss}")
 
 # ---------------------------------------------------------------------------
 # Phases 14-18: the mLSTM kernel and full-width xlstm-125m.

@@ -103,23 +103,32 @@ def _live_pairs(sq, skv, *, causal, window, q_offset) -> int:
     return live
 
 
+def input_kind(itemsize: int) -> str:
+    """The peak that prices an attention call: what its inputs allow, not
+    what a kernel happens to run -- bf16 inputs (``itemsize`` 2) at the
+    bf16 tensor-core peak, f32 inputs at the f32 CUDA-core peak (an f32
+    check at 2e-5 rules out bf16 products)."""
+    return "bf16" if itemsize == 2 else "fp32"
+
+
 def attention_roofline(*, b, hq, hkv, sq, skv, dh, causal=True, window=None,
                        q_offset=0, itemsize=4) -> Dict[str, float]:
     """H100 floor of one flash-attention call (seconds).
 
     compute_s: ``4*b*hq*sq*skv*dh`` FLOPs (QK^T and PV) times the unmasked
-    share of the (sq, skv) pairs, at the f32 CUDA-core peak (the kernel's
-    math is f32).  memory_s: q, k, v read once and o written once, at the
-    HBM rate.
+    share of the (sq, skv) pairs, at the peak of the inputs' type
+    (``kind``, :func:`input_kind`).  memory_s: q, k, v read once and o
+    written once, at the HBM rate.
     """
     share = _live_pairs(sq, skv, causal=causal, window=window,
                         q_offset=q_offset) / float(sq * skv)
     flops = 4.0 * b * hq * sq * skv * dh * share
     nbytes = float(itemsize * dh * (2 * b * hq * sq + 2 * b * hkv * skv))
-    compute_s = flops / H100["peak_fp32"]
+    kind = input_kind(itemsize)
+    compute_s = flops / H100["peak_" + kind]
     memory_s = nbytes / H100["hbm_bw"]
     return {"flops": flops, "bytes": nbytes, "live_share": share,
-            "compute_s": compute_s, "memory_s": memory_s,
+            "kind": kind, "compute_s": compute_s, "memory_s": memory_s,
             "roofline_s": max(compute_s, memory_s)}
 
 
@@ -127,14 +136,16 @@ def decode_attention_roofline(*, b, hq, hkv, S, dh, pos,
                               itemsize=4) -> Dict[str, float]:
     """H100 floor of one flash-decode call (seconds): the K/V bytes of the
     ``pos + 1`` valid keys read once (plus q and o), against ``4*b*hq*(pos+1)
-    *dh`` FLOPs at the f32 peak."""
+    *dh`` FLOPs at the peak of the inputs' type (:func:`input_kind`)."""
     n = min(pos + 1, S) if pos >= 0 else S
     flops = 4.0 * b * hq * n * dh
     nbytes = float(itemsize * dh * (2 * b * hkv * n + 2 * b * hq))
-    compute_s = flops / H100["peak_fp32"]
+    kind = input_kind(itemsize)
+    compute_s = flops / H100["peak_" + kind]
     memory_s = nbytes / H100["hbm_bw"]
-    return {"flops": flops, "bytes": nbytes, "compute_s": compute_s,
-            "memory_s": memory_s, "roofline_s": max(compute_s, memory_s)}
+    return {"flops": flops, "bytes": nbytes, "kind": kind,
+            "compute_s": compute_s, "memory_s": memory_s,
+            "roofline_s": max(compute_s, memory_s)}
 
 
 def mlstm_chunk_roofline(*, b, h, s, dh, chunk, itemsize=4,

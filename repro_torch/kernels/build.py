@@ -137,6 +137,21 @@ def build(names=None) -> dict:
     return took
 
 
+def sass_count(name: str, pattern: str) -> int:
+    """SASS instructions of the built library ``name`` (``cuobjdump -sass``,
+    from the toolkit beside ``nvcc``) whose opcode matches ``pattern``: how
+    a run shows which units a kernel uses (``HGMMA``: wgmma, ``HMMA``:
+    mma.sync)."""
+    import re
+    tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
+    build([name])
+    out = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    rx = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?(" + pattern
+                    + r")\b")
+    return sum(1 for line in out.splitlines() if rx.search(line))
+
+
 def compiler_report(name: str) -> str:
     """What ``nvcc -Xptxas=-v`` printed when this process built ``name``."""
     return _ptxas.get(name, "")

@@ -21,7 +21,10 @@ The bf16-limb GEMM (:func:`bf16x3_matmul`) replaces the TPU kernel
 Its plain version is :func:`~repro_torch.core.karatsuba.bf16xn_dot_general`
 (the same limbs and pairs, summed exactly and rounded once; the kernel
 differs from it by its own f32 accumulation error).  The CUDA source is
-``repro_torch/csrc/bf16_matmul.cu``.
+``repro_torch/csrc/bf16_matmul.cu``: split over K in groups of up to
+:data:`BF16_GROUP_K` entries (:func:`bf16_split_k`), the group sums added in
+a fixed order by a second kernel, so the result does not change from run
+to run.
 """
 from __future__ import annotations
 
@@ -36,8 +39,18 @@ from repro_torch.kernels import build
 
 _ARGTYPES = {"kom_matmul_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_void_p]}
-_BF16_ARGTYPES = {"bf16_matmul_launch": [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+_BF16_ARGTYPES = {"bf16_matmul_launch": [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+
+#: K entries one block of the bf16-limb GEMM sums (its nested-sum group),
+#: a multiple of the kernel's K tile (:data:`BF16_TILE_K`); halved, down to
+#: :data:`BF16_MIN_GROUP_K`, while the grid would give an H100's 132 SMs
+#: fewer than two blocks each (:data:`BF16_TARGET_BLOCKS`).
+BF16_GROUP_K = 1024
+BF16_MIN_GROUP_K = 256
+BF16_TILE_K = 32
+BF16_BLOCK_N = 128
+BF16_TARGET_BLOCKS = 264
 
 NAME = "kom_matmul"
 BF16_NAME = "bf16_matmul"
@@ -129,6 +142,35 @@ def _check_bf16(a, b, passes):
                          f"{tuple(b.shape)}")
 
 
+def bf16_split_k(m: int, k: int, n: int) -> dict:
+    """How the bf16-limb GEMM kernel splits an (m, k) x (k, n) product.
+
+    ``group_k``: the K entries of one group (see :data:`BF16_GROUP_K`).
+    ``bounds``: the [k0, k1) range of each group, one block per (group,
+    128 columns, tile of up to 16 rows): ``group_k`` entries from 0 on,
+    the last one short when ``k`` is not a multiple.  ``n4``: ``n``
+    padded to a multiple of 4 (the kernel reads B in 16-byte copies; the
+    wrapper pads and slices).  ``scratch``: the f32 shape (groups, m, n4)
+    of the per-group sums that the combine kernel adds in order, or None
+    for one group (the blocks then write C).
+    """
+    if min(m, k, n) <= 0:
+        raise ValueError(f"bad GEMM shape ({m}, {k}) x ({k}, {n})")
+    n4 = -(-n // 4) * 4
+    tiles = -(-n4 // BF16_BLOCK_N) * -(-m // 16)
+    group = BF16_GROUP_K
+    while group > BF16_MIN_GROUP_K and \
+            tiles * -(-k // group) < BF16_TARGET_BLOCKS:
+        group //= 2
+    bounds = [(k0, min(k, k0 + group)) for k0 in range(0, k, group)]
+    return {"group_k": group, "bounds": bounds, "n4": n4,
+            "scratch": (len(bounds), m, n4) if len(bounds) > 1 else None}
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def bf16x3_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
                         passes: int = 3) -> torch.Tensor:
     """The bf16-limb GEMM's function in PyTorch, on any device: the same
@@ -154,13 +196,21 @@ def bf16x3_matmul(a: torch.Tensor, b: torch.Tensor, *,
     bf = b.to(device=dev, dtype=torch.float32).contiguous()
     m, k = af.shape
     n = bf.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if m == 0 or n == 0:
-        return out
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros((m, n), dtype=torch.float32, device=dev)
+    plan = bf16_split_k(m, k, n)
+    n4 = plan["n4"]
+    if n4 != n:
+        bf = torch.nn.functional.pad(bf, (0, n4 - n))
+    bf = _aligned16(bf)
+    out = torch.empty((m, n4), dtype=torch.float32, device=dev)
+    scratch = None if plan["scratch"] is None else torch.empty(
+        plan["scratch"], dtype=torch.float32, device=dev)
     lib = build.library(BF16_NAME, _BF16_ARGTYPES)
     code = lib.bf16_matmul_launch(af.data_ptr(), bf.data_ptr(),
-                                  out.data_ptr(), m, n, k, passes,
+                                  out.data_ptr(), build.ptr(scratch), m, n4,
+                                  k, plan["group_k"], passes,
                                   build.stream_ptr(af))
     build.check_launch(lib, code, BF16_NAME)
     build.LAUNCHES[BF16_NAME] += 1
-    return out
+    return out if n4 == n else out[:, :n].contiguous()

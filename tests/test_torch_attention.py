@@ -215,6 +215,91 @@ def test_flash_decode_masks_padded_cache():
     assert _maxdiff(out_a.numpy(), oracle) <= TOL_F32
 
 
+def tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
+                 block_k=64, p_limbs=2):
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch, f32 out
+    (before the cast to bf16): scores from bf16 q . k products (exact in
+    f32) summed in f32, the online softmax in f32, and P split into
+    ``p_limbs`` bf16 limbs (hi = bf16(p), lo = bf16(p - hi)) before the
+    products with the bf16 values, each summed in f32."""
+    from repro_torch.kernels.flash_attention.flash_attention import live_mask
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    pad = (-skv) % block_k
+    k32, v32 = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                for t in (k, v))
+    q32 = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    scale = float(np.float32(1.0 / d ** 0.5))
+    q_pos = torch.arange(sq) + q_offset
+    m = torch.full((b, hkv, hq // hkv, sq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, sq, d))
+    for k0 in range(0, skv + pad, block_k):
+        kb, vb = (t[:, :, None, k0:k0 + block_k] for t in (k32, v32))
+        s = torch.matmul(q32, kb.transpose(-1, -2)) * scale
+        k_pos = torch.arange(k0, k0 + block_k)
+        s = torch.where(live_mask(q_pos, k_pos, causal=causal,
+                                  window=window), s, -1e30)
+        s = torch.where(k_pos < skv, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.matmul(hi, vb)
+        if p_limbs == 2:
+            pv = pv + torch.matmul((p - hi).to(torch.bfloat16).float(), vb)
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).reshape(b, hq, sq, d)
+
+
+TC_CASES = [  # b, hq, hkv, sq, skv, d, q_offset, window
+    (2, 4, 4, 64, 64, 32, 0, None),
+    (1, 8, 2, 64, 64, 32, 0, None),       # GQA
+    (1, 4, 1, 96, 96, 16, 0, None),       # MQA, skv not a block multiple
+    (1, 4, 4, 1, 128, 32, 127, None),     # a decode row
+    (1, 2, 2, 64, 64, 16, 0, 8),          # window
+    (1, 2, 2, 64, 64, 16, 0, 64),
+    (1, 2, 2, 48, 192, 64, 144, 80),      # q_offset + window
+    (1, 2, 1, 40, 40, 128, 0, None),      # dh 128
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,off,window", TC_CASES)
+def test_tensor_core_arithmetic_matches_plain_and_reference(b, hq, hkv, sq,
+                                                            skv, d, off,
+                                                            window):
+    """The bf16 kernel's arithmetic (bf16 products summed in f32, P in two
+    bf16 limbs) at bf16 inputs: within TOL_BF16 of the plain version and of
+    the reference's Pallas kernel (interpret mode) on the same inputs."""
+    q, k, v = _arrays((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
+    bf = torch.bfloat16
+    tq, tk, tv = _t(q, bf), _t(k, bf), _t(v, bf)
+    kw = dict(causal=True, window=window, q_offset=off)
+    got = tc_emulation(tq, tk, tv, **kw).to(bf).float().numpy()
+    plain = flash_attention(tq, tk, tv, block_k=32, **kw).float().numpy()
+    want = np.asarray(ref_flash(*(jnp.array(a, jnp.bfloat16)
+                                  for a in (q, k, v)),
+                                block_q=16, block_k=16, **kw), np.float32)
+    assert _maxdiff(got, plain) <= TOL_BF16
+    assert _maxdiff(got, want) <= TOL_BF16
+
+
+def test_two_limb_p_is_ten_times_closer_than_one_limb():
+    """Why the kernel issues P_hi V + P_lo V: against the f32 plain version
+    on the same (bf16-valued) inputs, before any output cast, the two-limb
+    P lands at least 10x closer than a single bf16 P."""
+    q, k, v = _arrays((1, 4, 128, 64), (1, 4, 256, 64), (1, 4, 256, 64))
+    tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+    kw = dict(causal=True, q_offset=128)
+    exact = flash_attention(tq.float(), tk.float(), tv.float(), **kw)
+    two = float((tc_emulation(tq, tk, tv, **kw) - exact).abs().max())
+    one = float((tc_emulation(tq, tk, tv, p_limbs=1, **kw)
+                 - exact).abs().max())
+    assert 10 * two <= one, (two, one)
+
+
 def test_attention_rooflines():
     """The bounds chip_smoke.py reports: causal work is the live share of
     the pairs; decode reads the valid K/V once."""
@@ -229,3 +314,24 @@ def test_attention_rooflines():
     d = decode_attention_roofline(b=2, hq=4, hkv=2, S=100, dh=8, pos=9)
     assert d["bytes"] == 4 * 8 * (2 * 2 * 2 * 10 + 2 * 2 * 4)
     assert d["roofline_s"] == max(d["compute_s"], d["memory_s"])
+    assert r["kind"] == d["kind"] == "fp32"
+    assert r["compute_s"] == r["flops"] / 67e12
+
+
+def test_attention_rooflines_price_bf16_inputs_at_the_bf16_peak():
+    """The bound reads the work, not the implementation: bf16 inputs at the
+    bf16 tensor-core peak, with half the bytes.  At one granite-3-2b prefill
+    layer that is 68.75 GFLOP of live work, 0.0695 ms (f32: 1.026 ms)."""
+    kw = dict(b=4, hq=32, hkv=8, sq=2048, skv=2048, dh=64)
+    r16 = attention_roofline(**kw, itemsize=2)
+    r32 = attention_roofline(**kw)
+    assert r16["kind"] == "bf16" and r16["flops"] == r32["flops"]
+    assert r16["bytes"] == r32["bytes"] / 2
+    assert r16["compute_s"] == r16["flops"] / 989e12
+    assert round(r16["flops"] / 1e9, 2) == 68.75
+    assert round(1e3 * r16["roofline_s"], 4) == 0.0695
+    assert round(1e3 * r32["roofline_s"], 3) == 1.026
+    d = decode_attention_roofline(b=8, hq=32, hkv=8, S=4096, dh=64,
+                                  pos=4095, itemsize=2)
+    assert d["kind"] == "bf16" and d["compute_s"] == d["flops"] / 989e12
+    assert d["roofline_s"] == d["memory_s"]

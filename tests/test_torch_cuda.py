@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.analysis.kom_float_weights import FLOAT_WEIGHTS_TOL  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import substrate as sub  # noqa: E402
 from repro_torch.core.precision import MatmulPolicy  # noqa: E402
@@ -311,8 +312,11 @@ def test_implicit_float_equals_plain(dev, variant, h, cin, cout, k, s, pad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [3, 4, 6])
-@pytest.mark.parametrize("m,k,n", [(8, 2000, 300), (1, 37, 33),
-                                   (37, 129, 65), (16, 4096, 1000)])
+@pytest.mark.parametrize("m,k,n", [
+    (8, 2000, 300), (1, 37, 33), (37, 129, 65), (16, 4096, 1000),
+    (1, 25088, 136), (4, 25088, 136), (8, 25088, 136),   # fc6's K: 25 groups
+    (20, 5000, 130),    # K not a multiple of the group, two m tiles
+])
 def test_bf16_gemm_equals_plain(dev, passes, m, k, n):
     from repro_torch.core.karatsuba import schedule_dot
     from repro_torch.kernels.kom_matmul import bf16x3_matmul
@@ -323,6 +327,20 @@ def test_bf16_gemm_equals_plain(dev, passes, m, k, n):
     _close_to_plain(lambda: bf16x3_matmul(a, b, passes=passes),
                     "bf16_matmul",
                     lambda: schedule_dot(a, b, passes=nb).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [3, 6])
+def test_bf16_gemm_split_k_is_the_same_from_run_to_run(dev, passes):
+    """The group sums are added in a fixed order (no float atomics), so the
+    split-K result is bitwise equal from run to run."""
+    from repro_torch.kernels.kom_matmul import bf16x3_matmul
+    g = torch.Generator().manual_seed(passes)
+    a = torch.randn((8, 25088), generator=g).to(dev)
+    b = (torch.randn((25088, 520), generator=g) * 1e-2).to(dev)
+    first = bf16x3_matmul(a, b, passes=passes)
+    for _ in range(3):
+        assert torch.equal(bf16x3_matmul(a, b, passes=passes), first)
 
 
 @pytest.mark.cuda
@@ -458,7 +476,8 @@ def test_flash_attention_kernel_equals_plain(dev, b, hq, hkv, sq, skv, d,
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     _kernel_vs_plain(lambda: fa(qb, kb, vb, causal=True, window=window,
                                 q_offset=off),
-                     "flash_attention", ATTN_TOL_BF16)
+                     "flash_attention", ATTN_TOL_BF16,
+                     _mutated(FA_MOD, "live_mask", _strict_causal))
 
 
 @pytest.mark.cuda
@@ -474,6 +493,12 @@ def test_flash_attention_kernel_noncausal_and_unlive_rows(dev):
     _kernel_vs_plain(lambda: fa(q, k, v, causal=True, window=4,
                                 q_offset=300), "flash_attention",
                      ATTN_TOL_F32)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    _kernel_vs_plain(lambda: fa(qb, kb, vb, causal=False),
+                     "flash_attention", ATTN_TOL_BF16)
+    _kernel_vs_plain(lambda: fa(qb, kb, vb, causal=True, window=4,
+                                q_offset=300), "flash_attention",
+                     ATTN_TOL_BF16)
 
 
 @pytest.mark.cuda
@@ -609,18 +634,25 @@ def test_mlstm_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp32", "kom_int14"])
+@pytest.mark.parametrize("policy", ["fp32", "kom_int14",
+                                    "kom_int14-float_weights"])
 def test_reduced_xlstm_on_card_matches_cpu(dev, policy):
     """Reduced xlstm-125m: the forward and four decode steps on the card
     within 1e-5 (fp32) / 2e-3 (kom_int14: an ulp can move a 14-bit level)
-    of max|logit| of the CPU plain versions.  Under kom_int14 the weights
-    are quantized once, as the serving engine quantizes them (chip_smoke's
-    reduced phase does the same)."""
+    of max|logit| of the CPU plain versions.  ``kom_int14``: the weights
+    quantized once, as the serving engine quantizes them.
+    ``kom_int14-float_weights``: float weights, so every projection
+    quantizes both operands per tensor (``kom_q_dot``), within
+    FLOAT_WEIGHTS_TOL; the same forward quantized with
+    ``base_bits=6`` on the card must miss it."""
+    from repro_torch.analysis.kom_float_weights import base_bits, run_logits
     from repro_torch.models import transformer
     from repro_torch.serving.weight_quant import quantize_params_inline
+    float_weights = policy.endswith("float_weights")
     cfg = reduced(get_config("xlstm-125m")).replace(
-        policy=MatmulPolicy(policy), compute_dtype="float32")
-    tol = 1e-5 if policy == "fp32" else 2e-3
+        policy=MatmulPolicy(policy.split("-")[0]), compute_dtype="float32")
+    tol = 1e-5 if policy == "fp32" else \
+        FLOAT_WEIGHTS_TOL if float_weights else 2e-3
     params = transformer.init_params(cfg, torch.Generator().manual_seed(2),
                                      device="cpu")
     if policy == "kom_int14":
@@ -628,14 +660,11 @@ def test_reduced_xlstm_on_card_matches_cpu(dev, policy):
     gp = transformer.params_to(params, dev)
     tokens = torch.randint(0, cfg.vocab_size, (2, 40),
                            generator=torch.Generator().manual_seed(3))
-    want, _ = transformer.forward(params, cfg, {"tokens": tokens})
-    got, _ = transformer.forward(gp, cfg, {"tokens": tokens.to(dev)})
-    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= tol
-    cache = transformer.init_cache(cfg, 2, 8, device="cpu")
-    gcache = transformer.init_cache(cfg, 2, 8, device=dev)
-    for t in range(4):
-        w, cache = transformer.serve_step(params, cfg, cache,
-                                          tokens[:, t:t + 1], t)
-        g, gcache = transformer.serve_step(gp, cfg, gcache,
-                                           tokens[:, t:t + 1].to(dev), t)
-        assert float((g.cpu() - w).abs().max() / w.abs().max()) <= tol
+    want = run_logits(params, cfg, tokens)
+    got = run_logits(gp, cfg, tokens)
+    for g, w in zip(got, want):     # the forward, then four decode steps
+        assert _rel(g, w) <= tol, _rel(g, w)
+    if float_weights:
+        with base_bits(6):
+            bad = run_logits(gp, cfg, tokens)
+        assert max(_rel(g, w) for g, w in zip(bad, want)) > tol

@@ -321,6 +321,95 @@ def test_float_models_match_jitted_reference(arch, policy, path):
         _separates(got, want, _ref_logits(arch, "bf16x3", "implicit"))
 
 
+@pytest.mark.parametrize("k", [1, 37, 1023, 1024, 1025, 2000, 4096, 25088,
+                               25093])
+def test_bf16_gemm_split_k_groups_tile_k(k):
+    """The bf16-limb GEMM kernel's K groups (one block group each) tile K
+    with no gap or overlap, start on the nested-sum group's boundaries,
+    and only the last one is short; the per-group sums get an f32 scratch
+    (groups, m, n padded to 4) exactly when there is more than one."""
+    from repro_torch.kernels.kom_matmul.ops import (BF16_GROUP_K,
+                                                    BF16_MIN_GROUP_K,
+                                                    BF16_TILE_K, bf16_split_k)
+    for m, n in ((8, 130), (1, 4096), (8, 4096), (20, 1000)):
+        plan = bf16_split_k(m, k, n)
+        bounds, group = plan["bounds"], plan["group_k"]
+        assert group in (BF16_GROUP_K, BF16_GROUP_K // 2, BF16_MIN_GROUP_K)
+        assert group % BF16_TILE_K == 0
+        assert len(bounds) == -(-k // group)
+        assert bounds[0][0] == 0 and bounds[-1][1] == k
+        assert all(a1 == b0 for (_, a1), (b0, _) in zip(bounds, bounds[1:]))
+        assert all(k0 % group == 0 and 0 < k1 - k0 <= group
+                   for k0, k1 in bounds)
+        assert all(k1 - k0 == group for k0, k1 in bounds[:-1])
+        n4 = -(-n // 4) * 4
+        assert plan["n4"] == n4
+        assert plan["scratch"] == ((len(bounds), m, n4) if len(bounds) > 1
+                                   else None)
+    with pytest.raises(ValueError):
+        bf16_split_k(0, k, 130)
+
+
+def test_bf16_gemm_split_k_group_follows_the_grid():
+    """VGG16's fc6 (K 25088, N 4096) already gives 800 blocks at the full
+    1024-entry group; fc7 and fc8 halve it, down to 256, for more blocks."""
+    from repro_torch.kernels.kom_matmul.ops import bf16_split_k
+    assert bf16_split_k(8, 25088, 4096)["group_k"] == 1024
+    assert bf16_split_k(8, 4096, 4096)["group_k"] == 256
+    assert bf16_split_k(8, 4096, 1000)["group_k"] == 256
+    assert bf16_split_k(1, 25088, 4096)["group_k"] == 1024
+
+
+def _split_k_sums(a, b, passes, group):
+    """The CUDA kernel's f32 sums in its own order (csrc/bf16_matmul.cu):
+    per K group of ``group`` entries, 8 K lanes (lane q takes entries q, q + 8, q + 16, q + 24
+    of each 32-entry tile) each add a tile's pass terms into a partial,
+    the partial into the lane's sum; the lanes, then the groups, are added
+    in order.  A bf16 x bf16 product is exact in f32, so ``s + p`` here is
+    the kernel's ``__fmaf_rn``."""
+    from repro_torch.kernels.kom_matmul.ops import BF16_TILE_K
+    limbs, pairs = pkar.BF16XN_SCHEDULES[passes]
+    la, lb = ([t.float() for t in pkar.float_split(x, limbs)] for x in (a, b))
+    m, k = a.shape
+    n, lanes = b.shape[1], 8
+    out = None
+    for g0 in range(0, k, group):
+        g1 = min(k, g0 + group)
+        acc = torch.zeros((lanes, m, n))
+        for t0 in range(g0, g1, BF16_TILE_K):
+            part = torch.zeros((lanes, m, n))
+            for e in range(BF16_TILE_K // lanes):
+                ks = t0 + torch.arange(lanes) + lanes * e
+                ok = (ks < g1)[:, None, None]
+                ks = ks.clamp(max=k - 1)
+                for i, j in pairs:
+                    prod = la[i][:, ks].T[:, :, None] * lb[j][ks][:, None, :]
+                    part = torch.where(ok, part + prod, part)
+            acc = acc + part
+        gsum = acc[0]
+        for q in range(1, lanes):
+            gsum = gsum + acc[q]
+        out = gsum if out is None else out + gsum
+    return out
+
+
+@pytest.mark.parametrize("group", [256, 1024])
+@pytest.mark.parametrize("passes", [3, 6])
+def test_bf16_gemm_split_k_sums_stay_within_float_tol(passes, group):
+    """The kernel's nested f32 sums (emulated above) at fc6's K = 25088,
+    at the smallest and the largest group: within TOL of the schedule's
+    exact value, which the neighbouring schedule misses -- the design keeps
+    the kernel checkable."""
+    g = torch.Generator().manual_seed(passes)
+    a = torch.relu(torch.randn((8, 25088), generator=g))
+    b = torch.randn((25088, 24), generator=g) * 25088 ** -0.5
+    got = _split_k_sums(a, b, passes, group)
+    want = pkar.schedule_dot(a, b, passes=passes)
+    assert _rel(got, want) <= TOL, _rel(got, want)
+    other = pkar.schedule_dot(a, b, passes={3: 1, 6: 3}[passes])
+    assert _rel(other, want) > TOL, _rel(other, want)
+
+
 def test_bf16x3_amplifies_ulp_noise():
     """Why whole bf16x3 forwards get the looser 1e-5: one-ulp input noise
     moves their logits past the 1e-6 that fp32 and bf16x6 stay far

@@ -525,3 +525,19 @@ def test_launcher_serves_xlstm_on_cpu(capsys):
                  "--policy", "kom_int14"]) == 0
     out = capsys.readouterr().out
     assert f"{ARCH}/kom_int14 on cpu: 3 requests" in out
+
+
+def test_float_weight_kom_ulp_noise_sets_its_card_limit():
+    """kom_int14 on FLOAT weights quantizes both operands of every
+    projection per tensor (``kom_q_dot``).  One f32 ulp on half of the
+    embedding output moves the reduced xlstm's logits (forward and four
+    decode steps) further than it moves them on weights quantized once,
+    but within ``FLOAT_WEIGHTS_TOL``, the card-vs-CPU limit of that path;
+    the ``base_bits=6`` control lands outside it (ROADMAP.md, Queue 3)."""
+    from repro_torch.analysis.kom_float_weights import (FLOAT_WEIGHTS_TOL,
+                                                        ulp_sensitivity)
+    moves = ulp_sensitivity("cpu", seeds=range(4))
+    assert max(moves["prequantized"]) < max(moves["float_weights"])
+    assert max(moves["prequantized"]) <= 2e-3
+    assert max(moves["float_weights"]) <= FLOAT_WEIGHTS_TOL
+    assert min(moves["control_base_bits_6"]) > FLOAT_WEIGHTS_TOL

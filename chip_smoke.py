@@ -34,7 +34,12 @@ Phases, each fatal on failure:
    equal the plain-version forward on the card bit for bit, and a reduced
    VGG16 forward under its fused plan on the card must equal the CPU plain
    versions bit for bit;
-7. hold the systolic conv (``karatsuba``/``schoolbook``: max abs
+7. count the tensor-core instructions (``HGMMA``, ``HMMA``) in the float
+   conv library's SASS (the bf16 schedules must issue ``mma.sync``) and run
+   the one-MMA rounding probe (``analysis/mma_probe``: every output within
+   17 units of the top addend's f32 grid, the bound of the model the CPU
+   tests emulate); then hold the systolic conv
+   (``karatsuba``/``schoolbook``: max abs
    difference 0), the float conv kernel (``native``, which the systolic
    engine's ``native`` variant shares, ``bf16x3``, ``bf16x6``) and the
    bf16-limb GEMM (passes 3/4/6) against their plain versions on the card
@@ -48,7 +53,8 @@ Phases, each fatal on failure:
    and bf16x6; native for bf16x3) on the same inputs must miss it.  Times
    beside one PyTorch call for the same function: ``F.conv2d`` (fp32,
    channels-last) for the float convs, ``torch.matmul`` (fp32) for the
-   GEMM;
+   GEMM; each float conv variant's sum over the 13 convs of one forward
+   beside ``F.conv2d``'s and the bound;
 8. serve full-width VGG16 under ``kom_int14`` with every conv pinned to
    the systolic engine (``conv_path="systolic"``, buckets 1/4/8, 16
    requests): per forward 13 systolic and 3 limb-GEMM launches, logits
@@ -76,15 +82,18 @@ Phases, each fatal on failure:
     (b 4, hq 32, hkv 8, sq = skv = 2048, dh 64, causal), at sq 256 with
     q_offset 1792 and with window 512, each in f32 and bf16, and at sq =
     skv = 1000 (padded); the flash-decode kernel at b 8, hq 32, hkv 8, S
-    4096, dh 64, pos 0/1000/4095 (f32, and bf16 at 4095) and S 4000
-    (padded).  f32 within ATTN_TOL_F32 and bf16 within ATTN_TOL_BF16, the
-    mutant plain version (causal ``>`` for ``>=``; decode ``<`` for ``<=``)
-    required to miss the tolerance (f32; bf16 where q_offset is 0, so that
-    the first row's only key is the one the mutant drops); timed beside
+    4096, dh 64, pos 0/1000/4095 (f32, and bf16 at 4095 and at 3), -1
+    (every key masked) and S 4000 (padded).  f32 within ATTN_TOL_F32 and
+    bf16 within ATTN_TOL_BF16, the mutant plain version (causal ``>`` for
+    ``>=``; decode ``<`` for ``<=``) required to miss the tolerance (f32;
+    bf16 where q_offset is 0, so that the first row's only key is the one
+    the mutant drops, and for decode at pos 3, where the dropped key
+    carries a quarter of the weight); timed beside
     ``F.scaled_dot_product_attention`` with the same mask (a yardstick the
-    port never calls) and the ``analysis/roofline`` bound (bf16 inputs at
-    the bf16 peak); then the decode op's own run (its entry point, no
-    model calls it);
+    port never calls; decode and SDPA also replayed from a CUDA graph,
+    device time alone, the JSON row's time) and the ``analysis/roofline``
+    bound (bf16 inputs at the bf16 peak); then the decode op's own run (its
+    entry point, no model calls it);
 11. full-width granite-3-2b (40 layers, random weights, seed 0): the
     prefill step (``make_prefill_step``, ``use_flash_kernel=True``) on 4 x
     2048 tokens under ``native_bf16`` -- 40 flash-attention launches per
@@ -246,6 +255,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` in ms with no host time in it: ``iters``
+    calls captured in one CUDA graph, replayed between CUDA events (for
+    calls shorter than their own Python dispatch)."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -653,8 +687,27 @@ def phase_compare_systolic_float(torch) -> dict:
     """Phase 7; the summary sums one VGG16 forward's calls: the integer
     systolic under kom_int14, the float convs, the bf16x3 GEMM.  The
     systolic engine's native variant runs the float conv kernel's native
-    instantiation, so its row reports that kernel's numbers."""
+    instantiation, so its row reports that kernel's numbers.  First the
+    float conv library's tensor-core opcodes (the bf16 schedules must
+    issue ``mma.sync``: HMMA) and the one-MMA rounding probe."""
+    from repro_torch.analysis import mma_probe
     from repro_torch.kernels import build
+
+    tc = {op: build.sass_count("implicit_conv_float", op)
+          for op in ("HGMMA", "HMMA")}
+    log(f"[compare] tensor-core instructions in the implicit_conv_float "
+        f"library's SASS (cuobjdump -sass): {tc}")
+    if not tc["HMMA"]:
+        raise SystemExit("[compare] the bf16 float convs issue no mma.sync")
+    for case, r in mma_probe.run().items():
+        log(f"[compare] one bf16 MMA, {case}, vs the exact sum: "
+            f"{r['outputs']} outputs, max error {r['max_err_grid']} units of "
+            f"the top addend's f32 grid, toward zero {r['toward_zero']:.4f}, "
+            f"bitwise equal to " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["bitwise"].items()))
+        if r["max_err_grid"] > 17:
+            raise SystemExit(f"[compare] MMA probe {case}: error beyond the "
+                             f"emulated model's bound: {r}")
 
     gen = torch.Generator().manual_seed(3)
     summary, schoolbook_ms, gemm = {}, 0.0, {}
@@ -682,6 +735,14 @@ def phase_compare_systolic_float(torch) -> dict:
     for (policy, m), (ms, lib_ms, b_ms) in gemm.items():
         log(f"[compare] bf16_matmul {policy} m={m} over fc6+fc7+fc8: "
             f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f}")
+    for variant in ("native", "bf16x3", "bf16x6"):
+        s = summary[f"implicit_conv_{variant}"]
+        b_ms, b_by = bound_ms(s["ops"], s["bytes"], s["kind"])
+        log(f"[compare] implicit_conv_{variant} over one VGG16 forward (13 "
+            f"convs, batch {VGG_BATCH}): kernel_ms={s['ms']:.4f} "
+            f"library_ms={s['library_ms']:.4f} (F.conv2d fp32) "
+            f"bound_ms={b_ms:.4f} ({b_by}, {s['kind']}, "
+            f"{100 * b_ms / s['ms']:.1f}%)")
     log(f"[compare] systolic_conv schoolbook_int16: {schoolbook_ms:.4f} ms "
         "over the VGG16 geometries; the integer systolic conv has no single "
         "PyTorch call computing the same quantized limb arithmetic: "
@@ -1231,21 +1292,23 @@ def before_pos(orig):
     return lambda k_pos, pos: k_pos < pos
 
 
-def sdpa_ms(torch, q, k, v, mask) -> float:
+def sdpa_ms(torch, q, k, v, mask, graph=False) -> float:
     """Yardstick: one ``F.scaled_dot_product_attention`` call with the same
     boolean mask (True = attend), GQA by ``enable_gqa``; never called by
-    the port."""
+    the port.  ``graph``: timed replayed from a CUDA graph."""
     import torch.nn.functional as F
 
+    timed = ((lambda fn: cuda_graph_ms(fn, iters=20)) if graph
+             else (lambda fn: cuda_ms(fn, iters=10)))
     try:
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), iters=10)
+        return timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
     except (TypeError, RuntimeError) as e:  # no GQA in this build/backend
         log(f"  sdpa without enable_gqa ({e}): K/V repeated first")
         g = q.shape[1] // k.shape[1]
         k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), iters=10)
+        return timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask))
 
 
 def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
@@ -1302,7 +1365,9 @@ def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
 
 def decode_case(torch, build, summary, label, q, k, v, pos, row=False):
     """The flash-decode kernel against its plain version on the card (same
-    tolerances; the ``<`` mutant must miss for f32)."""
+    tolerances; the ``<`` mutant must miss for f32, and for bf16 at a pos
+    small enough that the dropped key moves the output past
+    ATTN_TOL_BF16)."""
     from repro_torch.analysis.roofline import decode_attention_roofline
     from repro_torch.kernels.flash_decode import flash_decode
 
@@ -1314,23 +1379,29 @@ def decode_case(torch, build, summary, label, q, k, v, pos, row=False):
     tol = ATTN_TOL_F32 if f32 else ATTN_TOL_BF16
     err = float((got.float() - want.float()).abs().max())
     miss = None
-    if f32:
+    if pos >= 0 and (f32 or pos < 8):  # pos < 0: every key is masked
         with mutated(FD_MOD, "valid_keys", before_pos), \
                 build.plain_versions():
-            miss = float((got - run()).abs().max())
+            miss = float((got.float() - run().float()).abs().max())
     b, hq, _, dh = q.shape
     hkv, S = k.shape[1], k.shape[2]
-    ms = cuda_ms(run, iters=10)
+    eager_ms = cuda_ms(run, iters=10)
     with build.plain_versions():
         plain_ms = cuda_ms(run, iters=3, warmup=1)
     mask = (torch.arange(S, device=q.device) <= pos)[None, :]
-    lib_ms = sdpa_ms(torch, q, k, v, mask)
+    eager_lib_ms = sdpa_ms(torch, q, k, v, mask)
+    # A decode call is shorter than its own Python dispatch: the kernel and
+    # SDPA are also timed replayed from a CUDA graph (device time alone),
+    # and those times are the row's.
+    ms = cuda_graph_ms(run, iters=20)
+    lib_ms = sdpa_ms(torch, q, k, v, mask, graph=True)
     rf = decode_attention_roofline(b=b, hq=hq, hkv=hkv, S=S, dh=dh, pos=pos,
                                    itemsize=q.element_size())
     b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], rf["kind"])
     log(f"[attention] flash_decode {label} {str(q.dtype)[6:]}: "
         f"max_abs_err={err} (tol {tol}) mutant_err={miss} "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+        f"kernel_ms={ms:.4f} (eager {eager_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"sdpa_ms={lib_ms:.4f} (eager {eager_lib_ms:.4f}) "
         f"bound_ms={b_ms:.4f} ({b_by}, {rf['kind']}, "
         f"{100 * b_ms / ms:.1f}%)")
     if not (err <= tol and torch.isfinite(got.float()).all()) or \
@@ -1378,6 +1449,10 @@ def phase_compare_attention(torch) -> tuple:
                 row=True)
     decode_case(torch, build, summary, "S4096 pos4095",
                 *(t.bfloat16() for t in (q, kc, vc)), 4095)
+    decode_case(torch, build, summary, "S4096 pos3 (mutant)",
+                *(t.bfloat16() for t in (q, kc, vc)), 3)
+    decode_case(torch, build, summary, "S4096 pos-1 (all masked)", q, kc,
+                vc, -1)
     decode_case(torch, build, summary, "S4000 pos3999 (padded)", q,
                 kc[:, :, :4000], vc[:, :, :4000], 3999)
     build.reset_launches()

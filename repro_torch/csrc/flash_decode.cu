@@ -6,21 +6,33 @@
 // (flash_decode_raw), whose grid (b, hq, S/bk) ran the KV-block axis in
 // order and combined the blocks' online-softmax partials in VMEM scratch.
 // Blocks on the card run in no order, so the sequential KV axis becomes
-// split-K: flash_decode_split_kernel gives each (split of SPLIT keys,
-// kv-head, batch) one thread block that runs the online softmax over its
-// keys for all `group` q-heads of that kv-head (GQA by index: K/V are read
-// once per group), and writes (m, l, acc) partials; flash_decode_combine
-// rescales them by exp(m_s - max m) and divides.  Why split-K and not one
-// block per (b, head) walking every block: at the serving shapes (b 8,
-// hkv 8) that is 64 blocks for 132 SMs, and one block cannot keep enough
-// loads in flight to stream its 2 MB of K/V at the card's rate.
+// split-K: flash_decode_split_kernel gives each (split of `split` keys,
+// kv-head and group of GB q-heads, batch) one thread block that runs the
+// online softmax over its keys and writes (m, l, acc) partials;
+// flash_decode_combine rescales them by exp(m_s - max m) and divides, in a
+// fixed order (bitwise the same from run to run).
 //
 // What bounds it on this card: reading the cache once (2*b*hkv*S*dh
-// elements; 4096 keys at dh 64, b 8, hkv 8: 134 MB in f32), ~1 FLOP per
-// byte.  What the design does about it: 16 splits per (b, kv-head) at
-// S = 4096 give 1024 blocks, each reading its K/V chunk coalesced into
-// shared memory once for all its q-heads; splits wholly past pos read
-// nothing.
+// elements; 4096 keys at dh 64, b 8, hkv 8: 67 MB in bf16), ~1 FLOP per
+// byte.  What the design does about it:
+//   * the wrapper picks the split (flash_decode.flash_decode_splits, a
+//     multiple of the 64-key chunk) so the grid covers every SM at least
+//     twice, whatever b, hkv and S are;
+//   * K and V stream through a 2-stage cp.async ring of 64-key chunks in
+//     16-byte copies (8 bf16 or 4 f32), kept in the cache's own dtype and
+//     widened to f32 at use; one chunk is in flight while the block
+//     computes on the other, one __syncthreads per chunk (a third stage
+//     measured no faster in bf16 and slower in f32 on an H100: fewer
+//     blocks fit an SM);
+//   * 4 warps own 16 keys each per chunk; a group of dh / (16 B) lanes
+//     shares a key (a lane holds one 16-byte slice of q, k, v and the
+//     accumulator), so a score is a short FMA chain and a butterfly
+//     shuffle reduce, and each group runs its own online softmax over its
+//     keys, P V included; the block combines its groups in a fixed order;
+//   * splits wholly past pos read nothing;
+//   * where sqrt(dh) is a power of two (dh 16, 64) q is prescaled by its
+//     inverse, exactly, instead of a division per score (the division was
+//     half the bf16 time at the serving shape).
 //
 // Arithmetic, kept as the TPU kernel's: s = (q . k) / sqrt(dh), -1e30 for
 // keys past pos (not -inf), running max, p = exp(s - m), alpha = exp(m_old -
@@ -39,14 +51,46 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int CH = 32;      // keys per chunk = one warp's lanes
-constexpr int SPLIT = 256;  // keys per split
+constexpr int WARPS = THREADS / 32;
+constexpr int CH = 64;            // keys per chunk
+constexpr int KPW = CH / WARPS;   // keys per warp per chunk
+constexpr int STAGES = 2;         // chunks of the cp.async ring
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 16 bytes of T widened to f32 (exact).
+__device__ __forceinline__ void widen(uint4 v, float (&f)[4], const float*) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void widen(uint4 v, float (&f)[8],
+                                      const __nv_bfloat16*) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -56,121 +100,205 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-size_t split_smem_bytes(int g, int dh) {
-  // sQ[g][dh] sAcc[g][dh] sS[g][CH] sM/sL/sA[g]; sK[CH][dh+1] sV[CH][dh]
-  return sizeof(float) *
-         ((size_t)g * (2 * dh + CH + 3) + (size_t)CH * (2 * dh + 1));
-}
+template <typename T, int DH, int GB>
+struct Shape {
+  static constexpr int E = 16 / sizeof(T);   // elements per 16-byte slice
+  static constexpr int LK = DH / E;          // lanes per key
+  static constexpr int KP = 32 / LK;         // keys per warp pass
+  static constexpr int NK = KPW / KP;        // keys per lane group per chunk
+  static constexpr int NB = NK < 4 ? NK : 4; // keys per softmax update
+  static constexpr int NG = WARPS * KP;      // lane groups per block
+  static_assert(DH % E == 0 && LK >= 2 && LK <= 32 && NK % NB == 0, "dh");
+  static constexpr size_t ring_bytes = STAGES * 2 * CH * DH * sizeof(T);
+  static constexpr size_t comb_bytes = sizeof(float) * GB * NG * DH;
+  static constexpr size_t bytes() {
+    return (ring_bytes > comb_bytes ? ring_bytes : comb_bytes) +
+           sizeof(float) * 2 * GB * NG;
+  }
+};
 
-template <typename T>
+template <typename T, int DH, int GB>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_split_kernel(const T* __restrict__ Q,
                               const T* __restrict__ K,
                               const T* __restrict__ V, float* __restrict__ Pm,
                               float* __restrict__ Pl,
                               float* __restrict__ Pacc, int hq, int hkv,
-                              int S, int dh, int pos, int nsplit,
+                              int S, int pos, int split, int nsplit,
                               float denom) {
-  extern __shared__ float smem[];
-  const int g = hq / hkv;
-  float* sQ = smem;             // [g][dh]
-  float* sAcc = sQ + g * dh;    // [g][dh]
-  float* sS = sAcc + g * dh;    // [g][CH]
-  float* sM = sS + g * CH;      // [g]
-  float* sL = sM + g;           // [g]
-  float* sA = sL + g;           // [g]
-  float* sK = sA + g;           // [CH][dh + 1]
-  float* sV = sK + CH * (dh + 1);  // [CH][dh]
+  using Sh = Shape<T, DH, GB>;
+  constexpr int E = Sh::E, LK = Sh::LK, KP = Sh::KP, NK = Sh::NK,
+                NB = Sh::NB, NG = Sh::NG;
+  extern __shared__ float4 smem4[];
+  T* sK = reinterpret_cast<T*>(smem4);   // [STAGES][CH][DH]
+  T* sV = sK + STAGES * CH * DH;         // [STAGES][CH][DH]
+  float* sAcc = reinterpret_cast<float*>(smem4);  // [GB][NG][DH], after
+  float* sM = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) +
+      (Sh::ring_bytes > Sh::comb_bytes ? Sh::ring_bytes : Sh::comb_bytes));
+  float* sL = sM + GB * NG;
 
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int g = hq / hkv, hgroups = g / GB;
+  const int sp = blockIdx.x, hk = blockIdx.y / hgroups;
+  const int h0 = hk * g + (blockIdx.y % hgroups) * GB, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ks0 = split * SPLIT;
-  const int ks1 = ks0 + SPLIT < S ? ks0 + SPLIT : S;
+  const int grp = lane / LK, r = lane % LK;
+  const int ks0 = sp * split;
+  const int ks1 = ks0 + split < S ? ks0 + split : S;
   const int kend = pos >= 0 && pos + 1 < ks1 ? pos + 1 : ks1;
-  const size_t part0 = (size_t)(b * hq + hk * g) * nsplit + split;
+  const size_t part0 = (size_t)(b * hq + h0) * nsplit + sp;
 
   if (pos >= 0 && ks0 > pos) {  // wholly past pos: weight 0 in the combine
-    for (int o = tid; o < g * dh; o += THREADS) {
-      const size_t p = part0 + (size_t)(o / dh) * nsplit;
-      Pacc[p * dh + o % dh] = 0.0f;
-      if (o % dh == 0) {
+    for (int o = tid; o < GB * DH; o += THREADS) {
+      const size_t p = part0 + (size_t)(o / DH) * nsplit;
+      Pacc[p * DH + o % DH] = 0.0f;
+      if (o % DH == 0) {
         Pm[p] = NEG;
         Pl[p] = 0.0f;
       }
     }
     return;
   }
-  for (int o = tid; o < g * dh; o += THREADS) {
-    sQ[o] = to_f32(Q[(size_t)(b * hq + hk * g) * dh + o]);
-    sAcc[o] = 0.0f;
+  const T* kb = K + (size_t)(b * hkv + hk) * S * DH;
+  const T* vb = V + (size_t)(b * hkv + hk) * S * DH;
+  auto load_chunk = [&](int slot, int kc0) {
+    for (int q = tid; q < CH * LK; q += THREADS) {
+      const int j = q / LK, v = q % LK;
+      const bool ok = kc0 + j < kend;
+      const size_t gi = (size_t)(kc0 + j) * DH + v * E;
+      const int si = (slot * CH + j) * DH + v * E;
+      cp_async16(sK + si, ok ? kb + gi : kb, ok);
+      cp_async16(sV + si, ok ? vb + gi : vb, ok);
+    }
+  };
+  const int nch = (kend - ks0 + CH - 1) / CH;
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < nch) load_chunk(c, ks0 + c * CH);
+    cp_async_commit();
   }
-  for (int i = tid; i < g; i += THREADS) {
-    sM[i] = NEG;
-    sL[i] = 0.0f;
-  }
-  const T* kb = K + (size_t)(b * hkv + hk) * S * dh;
-  const T* vb = V + (size_t)(b * hkv + hk) * S * dh;
 
-  for (int c0 = ks0; c0 < kend; c0 += CH) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int idx = tid; idx < CH * dh; idx += THREADS) {
-      const int j = idx / dh, d = idx % dh;
-      const bool ok = c0 + j < kend;
-      const size_t gi = (size_t)c0 * dh + idx;
-      sK[j * (dh + 1) + d] = ok ? to_f32(kb[gi]) : 0.0f;
-      sV[idx] = ok ? to_f32(vb[gi]) : 0.0f;
-    }
-    __syncthreads();
-    for (int p = tid; p < g * CH; p += THREADS) {
-      const int gi = p / CH, j = p % CH, kp = c0 + j;
-      float s = -INFINITY;  // keys at or past kend add nothing
-      if (kp < kend) {
-        float dot = 0.0f;
-        for (int d = 0; d < dh; ++d)
-          dot = __fmaf_rn(sQ[gi * dh + d], sK[j * (dh + 1) + d], dot);
-        s = kp <= pos ? __fdiv_rn(dot, denom) : NEG;
-      }
-      sS[gi * CH + j] = s;
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += THREADS / 32) {
-      const float s = sS[gi * CH + lane];
-      float mx = s;
+  // sqrt(dh) a power of two (dh 16, 64): q / sqrt(dh) is exact and every
+  // rounding of the dot scales with it, so prescaling q gives the
+  // reference's (q . k) / sqrt(dh) bit for bit without a division per key.
+  const bool pow2 = (__float_as_uint(denom) & 0x007fffffu) == 0;
+  const float inv = __fdiv_rn(1.0f, denom);
+  float qv[GB][E], acc[GB][E], m[GB], l[GB];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[gi];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = expf(__fsub_rn(s, m_new));
-      float sum = p;
+  for (int h = 0; h < GB; ++h) {
+    widen(*reinterpret_cast<const uint4*>(
+              Q + (size_t)(b * hq + h0 + h) * DH + r * E),
+          qv[h], static_cast<const T*>(nullptr));
+    if (pow2)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      sS[gi * CH + lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(__fsub_rn(m_old, m_new));
-        sA[gi] = alpha;
-        sL[gi] = __fadd_rn(__fmul_rn(sL[gi], alpha), sum);
-        sM[gi] = m_new;
+      for (int e = 0; e < E; ++e) qv[h][e] = __fmul_rn(qv[h][e], inv);
+    m[h] = NEG;
+    l[h] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[h][e] = 0.0f;
+  }
+
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // chunk c landed; every thread is done with c - 1
+    const int kc0 = ks0 + c * CH;
+    if (c + STAGES - 1 < nch)
+      load_chunk((c + STAGES - 1) % STAGES, kc0 + (STAGES - 1) * CH);
+    cp_async_commit();
+    const T* ks = sK + (c % STAGES) * CH * DH;
+    const T* vs = sV + (c % STAGES) * CH * DH;
+#pragma unroll
+    for (int i0 = 0; i0 < NK; i0 += NB) {
+      float s[GB][NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int j = warp * KPW + (i0 + i) * KP + grp;
+        float kf[E];
+        widen(*reinterpret_cast<const uint4*>(ks + j * DH + r * E), kf, ks);
+        const bool live = kc0 + j < kend;
+#pragma unroll
+        for (int h = 0; h < GB; ++h) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) dot = __fmaf_rn(qv[h][e], kf[e], dot);
+#pragma unroll
+          for (int off = LK / 2; off > 0; off >>= 1)
+            dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, off));
+          // keys at or past kend add nothing; pos < 0 masks every key
+          s[h][i] = !live     ? -INFINITY
+                    : pos < 0 ? NEG
+                    : pow2    ? dot
+                              : __fdiv_rn(dot, denom);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < GB; ++h) {
+        float mx = s[h][0];
+#pragma unroll
+        for (int i = 1; i < NB; ++i) mx = fmaxf(mx, s[h][i]);
+        const float m_new = fmaxf(m[h], mx);
+        const float alpha = expf(__fsub_rn(m[h], m_new));
+        float sum = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          s[h][i] = expf(__fsub_rn(s[h][i], m_new));  // p
+          sum = __fadd_rn(sum, s[h][i]);
+        }
+        l[h] = __fadd_rn(__fmul_rn(l[h], alpha), sum);
+        m[h] = m_new;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[h][e] = __fmul_rn(acc[h][e], alpha);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int j = warp * KPW + (i0 + i) * KP + grp;
+        float vf[E];
+        widen(*reinterpret_cast<const uint4*>(vs + j * DH + r * E), vf, vs);
+#pragma unroll
+        for (int h = 0; h < GB; ++h)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[h][e] = __fmaf_rn(s[h][i], vf[e], acc[h][e]);
       }
     }
-    __syncthreads();
-    for (int o = tid; o < g * dh; o += THREADS) {
-      const int gi = o / dh, d = o % dh;
-      float a = __fmul_rn(sAcc[o], sA[gi]);
-      for (int j = 0; j < CH; ++j)
-        a = __fmaf_rn(sS[gi * CH + j], sV[j * dh + d], a);
-      sAcc[o] = a;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: sAcc aliases it
+
+  // The block's NG group states -> one partial per head, groups in order.
+  const int gg = warp * KP + grp;
+#pragma unroll
+  for (int h = 0; h < GB; ++h) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      sAcc[(h * NG + gg) * DH + r * E + e] = acc[h][e];
+    if (r == 0) {
+      sM[h * NG + gg] = m[h];
+      sL[h * NG + gg] = l[h];
     }
   }
   __syncthreads();
-  for (int o = tid; o < g * dh; o += THREADS) {
-    const size_t p = part0 + (size_t)(o / dh) * nsplit;
-    Pacc[p * dh + o % dh] = sAcc[o];
-    if (o % dh == 0) {
-      Pm[p] = sM[o / dh];
-      Pl[p] = sL[o / dh];
+  if (tid < GB) {
+    const int h = tid;
+    float M = NEG;
+    for (int x = 0; x < NG; ++x) M = fmaxf(M, sM[h * NG + x]);
+    float L = 0.0f;
+    for (int x = 0; x < NG; ++x) {
+      const float w = expf(__fsub_rn(sM[h * NG + x], M));
+      sM[h * NG + x] = w;  // the group's weight, for the accumulators
+      L = __fmaf_rn(sL[h * NG + x], w, L);
     }
+    const size_t p = part0 + (size_t)h * nsplit;
+    Pm[p] = M;
+    Pl[p] = L;
+  }
+  __syncthreads();
+  for (int o = tid; o < GB * DH; o += THREADS) {
+    const int h = o / DH, d = o % DH;
+    float a = 0.0f;
+    for (int x = 0; x < NG; ++x)
+      a = __fmaf_rn(sAcc[(h * NG + x) * DH + d], sM[h * NG + x], a);
+    Pacc[(part0 + (size_t)h * nsplit) * DH + d] = a;
   }
 }
 
@@ -198,26 +326,52 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* pm,
-           void* pl, void* pacc, int b, int hq, int hkv, int S, int dh,
-           int pos, float denom, cudaStream_t st) {
-  const int nsplit = (S + SPLIT - 1) / SPLIT;
-  const size_t bytes = split_smem_bytes(hq / hkv, dh);
-  auto kern = flash_decode_split_kernel<T>;
+struct Args {
+  const void *q, *k, *v;
+  void *o, *pm, *pl, *pacc;
+  int b, hq, hkv, S, pos, split, nsplit;
+  float denom;
+};
+
+template <typename T, int DH, int GB>
+int launch_split(const Args& a, cudaStream_t st) {
+  const size_t bytes = Shape<T, DH, GB>::bytes();
+  auto kern = flash_decode_split_kernel<T, DH, GB>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(nsplit, hkv, b), THREADS, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(pm),
-      static_cast<float*>(pl), static_cast<float*>(pacc), hq, hkv, S, dh,
-      pos, nsplit, denom);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  flash_decode_combine<T><<<b * hq, THREADS, 0, st>>>(
-      static_cast<const float*>(pm), static_cast<const float*>(pl),
-      static_cast<const float*>(pacc), static_cast<T*>(o), dh, nsplit);
+  const int hgroups = a.hq / a.hkv / GB;
+  kern<<<dim3(a.nsplit, a.hkv * hgroups, a.b), THREADS, bytes, st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<float*>(a.pm),
+      static_cast<float*>(a.pl), static_cast<float*>(a.pacc), a.hq, a.hkv,
+      a.S, a.pos, a.split, a.nsplit, a.denom);
+  return (int)cudaGetLastError();
+}
+
+// GB = 4, 2 or 1 q-heads per block: the largest that divides the group.
+template <typename T, int DH>
+int launch_dh(const Args& a, cudaStream_t st) {
+  const int g = a.hq / a.hkv;
+  if (g % 4 == 0) return launch_split<T, DH, 4>(a, st);
+  if (g % 2 == 0) return launch_split<T, DH, 2>(a, st);
+  return launch_split<T, DH, 1>(a, st);
+}
+
+template <typename T>
+int launch(const Args& a, int dh, cudaStream_t st) {
+  int e;
+  switch (dh) {
+    case 16: e = launch_dh<T, 16>(a, st); break;
+    case 32: e = launch_dh<T, 32>(a, st); break;
+    case 64: e = launch_dh<T, 64>(a, st); break;
+    case 128: e = launch_dh<T, 128>(a, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (e != 0) return e;
+  flash_decode_combine<T><<<a.b * a.hq, THREADS, 0, st>>>(
+      static_cast<const float*>(a.pm), static_cast<const float*>(a.pl),
+      static_cast<const float*>(a.pacc), static_cast<T*>(a.o), dh, a.nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -227,22 +381,21 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Number of key splits for a cache of S keys (the partials' middle axis).
-extern "C" int flash_decode_splits(int S) { return (S + SPLIT - 1) / SPLIT; }
-
 // q (b, hq, 1, dh), k/v (b, hkv, S, dh) -- S the padded cache length -- and
-// o (b, hq, 1, dh), contiguous, f32 (bf16 = 0) or bf16 (bf16 = 1); pm/pl
-// (b*hq*splits) and pacc (b*hq*splits*dh) f32 scratch.  Launches the split
-// and combine kernels; returns cudaGetLastError() (0 on success).
+// o (b, hq, 1, dh), contiguous, 16-byte aligned, f32 (bf16 = 0) or bf16
+// (bf16 = 1); dh 16, 32, 64 or 128; `split` keys per split (a multiple of
+// 64), nsplit = ceil(S / split); pm/pl (b*hq*nsplit) and pacc
+// (b*hq*nsplit*dh) f32 scratch.  Launches the split and combine kernels;
+// returns cudaGetLastError() (0 on success).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, void* o, void* pm, void* pl,
                                    void* pacc, int b, int hq, int hkv, int S,
-                                   int dh, int pos, int bf16, float denom,
-                                   void* stream) {
+                                   int dh, int pos, int split, int nsplit,
+                                   int bf16, float denom, void* stream) {
+  if (split % CH || nsplit != (S + split - 1) / split)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, pm, pl, pacc, b, hq, hkv, S, pos, split, nsplit,
+               denom};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, pm, pl, pacc, b, hq, hkv, S, dh,
-                                 pos, denom, st);
-  return launch<float>(q, k, v, o, pm, pl, pacc, b, hq, hkv, S, dh, pos,
-                       denom, st);
+  return bf16 ? launch<__nv_bfloat16>(a, dh, st) : launch<float>(a, dh, st);
 }

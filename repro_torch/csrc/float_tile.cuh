@@ -1,5 +1,6 @@
-// Shared device code of the port's float kernels: the bf16 residual split,
-// the limb-pair schedules and a direct NHWC / HWIO conv over f32 tiles.
+// Shared device code of the port's float kernels: the bf16 residual split
+// and the limb-pair schedules (the bf16-limb GEMM and the float implicit
+// conv both include it).
 //
 // Arithmetic contract (held to a stated tolerance against the JAX
 // reference, which sums in other orders):
@@ -96,141 +97,6 @@ __device__ __forceinline__ void add_into(const float (&part)[TM][TN],
 #pragma unroll
     for (int j = 0; j < TN; ++j)
       acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
-}
-
-// ---------------------------------------------------------------------------
-// Direct float conv: one block owns (image, 64 output pixels, 64 output
-// channels) and walks every tap and the whole Cin itself, tap outer, Cin
-// inner (in chunks of CBK channels through shared memory).  The input is the
-// UNPADDED NHWC map: the SAME/VALID padding is indexing (zero outside).
-// Each element is split into its limbs once per tile load.  Sums nest: a
-// CBK-channel chunk, then its tap, then the total.  Epilogue: acc, or
-// fl(acc + bias) -- the reference adds the bias after its core.
-// ---------------------------------------------------------------------------
-
-constexpr int CBM = 64, CBN = 64, CBK = 16, CTM = 4, CTN = 4;
-constexpr int CTHREADS = (CBM / CTM) * (CBN / CTN);  // 256
-constexpr int OUTSIDE = -(1 << 28);                  // never inside the map
-
-template <int S>
-__global__ void __launch_bounds__(CTHREADS)
-    float_conv_kernel(const float* __restrict__ X, const float* __restrict__ Wt,
-                      const float* __restrict__ bias, float* __restrict__ out,
-                      int H, int W, int cin, int cout, int kh, int kw,
-                      int stride, int pad_t, int pad_l, int ho, int wo) {
-  constexpr int L = Sched<S>::limbs;
-  __shared__ float sa[L][CBK][CBM + 1];
-  __shared__ float sb[L][CBK][CBN];
-  __shared__ int s_iy[CBM], s_ix[CBM];
-  const int tid = threadIdx.x;
-  const int ty = tid / (CBN / CTN), tx = tid % (CBN / CTN);
-  const int img = blockIdx.z;
-  const int n0 = blockIdx.x * CBN;
-  const int npix = ho * wo;
-
-  for (int m = tid; m < CBM; m += CTHREADS) {
-    const int p = blockIdx.y * CBM + m;
-    if (p < npix) {
-      s_iy[m] = (p / wo) * stride - pad_t;
-      s_ix[m] = (p % wo) * stride - pad_l;
-    } else {
-      s_iy[m] = OUTSIDE;
-      s_ix[m] = 0;
-    }
-  }
-  __syncthreads();
-
-  const float* ximg = X + (size_t)img * H * W * cin;
-  float acc[CTM][CTN];
-#pragma unroll
-  for (int i = 0; i < CTM; ++i)
-#pragma unroll
-    for (int j = 0; j < CTN; ++j) acc[i][j] = 0.0f;
-
-  for (int dy = 0; dy < kh; ++dy) {
-    for (int dx = 0; dx < kw; ++dx) {
-      const float* wtap = Wt + (size_t)(dy * kw + dx) * cin * cout;
-      float tap[CTM][CTN];
-#pragma unroll
-      for (int i = 0; i < CTM; ++i)
-#pragma unroll
-        for (int j = 0; j < CTN; ++j) tap[i][j] = 0.0f;
-      for (int c0 = 0; c0 < cin; c0 += CBK) {
-        // A: 64 gathered pixels x CBK channels (consecutive threads read
-        // consecutive channels of one pixel).
-        for (int idx = tid; idx < CBM * CBK; idx += CTHREADS) {
-          const int m = idx / CBK, k = idx % CBK, c = c0 + k;
-          const int iy = s_iy[m] + dy, ix = s_ix[m] + dx;
-          float v = 0.0f;
-          if (c < cin && iy >= 0 && iy < H && ix >= 0 && ix < W)
-            v = ximg[((size_t)iy * W + ix) * cin + c];
-          float l[L];
-          split<S>(v, l);
-#pragma unroll
-          for (int t = 0; t < L; ++t) sa[t][k][m] = l[t];
-        }
-        // B: CBK channels x 64 output channels of this tap.
-        for (int idx = tid; idx < CBK * CBN; idx += CTHREADS) {
-          const int n = idx % CBN, k = idx / CBN, c = c0 + k;
-          const int gn = n0 + n;
-          const float v =
-              (c < cin && gn < cout) ? wtap[(size_t)c * cout + gn] : 0.0f;
-          float l[L];
-          split<S>(v, l);
-#pragma unroll
-          for (int t = 0; t < L; ++t) sb[t][k][n] = l[t];
-        }
-        __syncthreads();
-        float part[CTM][CTN];
-#pragma unroll
-        for (int i = 0; i < CTM; ++i)
-#pragma unroll
-          for (int j = 0; j < CTN; ++j) part[i][j] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < CBK; ++k) {
-          float a[L][CTM], b[L][CTN];
-#pragma unroll
-          for (int t = 0; t < L; ++t) {
-#pragma unroll
-            for (int i = 0; i < CTM; ++i) a[t][i] = sa[t][k][ty + i * (CBM / CTM)];
-#pragma unroll
-            for (int j = 0; j < CTN; ++j) b[t][j] = sb[t][k][tx + j * (CBN / CTN)];
-          }
-          pass_terms<S, CTM, CTN>(a, b, part);
-        }
-        __syncthreads();
-        add_into<CTM, CTN>(part, tap);
-      }
-      add_into<CTM, CTN>(tap, acc);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < CTM; ++i) {
-    const int p = blockIdx.y * CBM + ty + i * (CBM / CTM);
-    if (p >= npix) continue;
-#pragma unroll
-    for (int j = 0; j < CTN; ++j) {
-      const int gn = n0 + tx + j * (CBN / CTN);
-      if (gn >= cout) continue;
-      out[((size_t)img * npix + p) * cout + gn] =
-          bias ? __fadd_rn(acc[i][j], bias[gn]) : acc[i][j];
-    }
-  }
-}
-
-template <int S>
-inline cudaError_t launch_float_conv(const void* X, const void* Wt,
-                                     const void* bias, void* out, int n,
-                                     int H, int W, int cin, int cout, int kh,
-                                     int kw, int stride, int pad_t, int pad_l,
-                                     int ho, int wo, void* stream) {
-  const dim3 g((cout + CBN - 1) / CBN, (ho * wo + CBM - 1) / CBM, n);
-  float_conv_kernel<S><<<g, CTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const float*>(Wt),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, W, cin,
-      cout, kh, kw, stride, pad_t, pad_l, ho, wo);
-  return cudaGetLastError();
 }
 
 }  // namespace ftile

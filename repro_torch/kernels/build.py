@@ -27,6 +27,7 @@ import collections
 import contextlib
 import contextvars
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -160,8 +161,9 @@ def compiler_report(name: str) -> str:
 def library(name: str, argtypes: dict) -> ctypes.CDLL:
     """The loaded library ``name``, building it first if needed.
 
-    ``argtypes`` maps each exported launcher to its ctypes argument types
-    (pointers as ``c_void_p``, so 64-bit addresses are never cut).
+    ``argtypes`` maps each exported function to its ctypes argument types
+    (pointers as ``c_void_p``, so 64-bit addresses are never cut), or to
+    ``(argument types, result type)`` where the result is not a C int.
     """
     with _lock:
         lib = _libs.get(name)
@@ -171,8 +173,10 @@ def library(name: str, argtypes: dict) -> ctypes.CDLL:
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
             for fn, types in argtypes.items():
+                types, restype = (types if isinstance(types, tuple)
+                                  else (types, ctypes.c_int))
                 getattr(lib, fn).argtypes = types
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
 
@@ -182,6 +186,12 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({code})")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -25,11 +25,15 @@ version here:
 
 The float variants ``native``, ``bf16x3`` and ``bf16x6`` with the bias
 epilogue (:func:`conv2d_implicit_float_raw`) run
-``repro_torch/csrc/implicit_conv_float.cu``: f32 input gathered from NHWC,
-each value split once per tile into bf16 limbs, the pairs of the TPU
-kernel's ``_BF16_PAIRS`` as exact bf16 products into f32 partial sums.
-Their plain version (:func:`conv2d_implicit_float_plain`) is the port of
-the reference's float mirror ``_stream_conv_float`` -- per-tap dots,
+``repro_torch/csrc/implicit_conv_float.cu``: tiles of the NHWC input and
+the HWIO weight land by ``cp.async``; ``native`` runs a register-blocked
+SIMT tile of f32 FMAs, ``bf16x3``/``bf16x6`` split input and weight once
+into bf16 limb planes and run the pairs of the TPU kernel's
+``_BF16_PAIRS`` as ``mma.sync`` bf16 products on the tensor cores.  Both
+nest their f32 sums (:data:`FLOAT_MMA_K` and :data:`FLOAT_CHUNK` name the
+order; the CPU tests emulate it).  Their plain version
+(:func:`conv2d_implicit_float_plain`) is the port of the reference's
+float mirror ``_stream_conv_float`` -- per-tap dots,
 native f32 or bf16 limb passes -- with every product summed exactly
 (:func:`~repro_torch.core.karatsuba.schedule_dot`) and rounded once, so
 the kernel differs from it by its own f32 accumulation error alone.  The
@@ -65,8 +69,26 @@ _ARGTYPES = {"implicit_conv_launch": [ctypes.c_void_p] * 7
 #: The float variants' library and each variant's launch-counter name.
 FLOAT_LIB = "implicit_conv_float"
 FLOAT_NAMES = {v: f"implicit_conv_{v}" for v in FLOAT_PASSES}
-_FLOAT_ARGTYPES = {"implicit_conv_float_launch": [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 13 + [ctypes.c_void_p]}
+_FLOAT_ARGTYPES = {"implicit_conv_float_launch": [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p],
+                   "implicit_conv_float_scratch": ([ctypes.c_int] * 10,
+                                                   ctypes.c_longlong),
+                   "mma_probe_launch": [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_void_p]}
+#: The float kernel's sum order (``csrc/implicit_conv_float.cu``): K walks
+#: tap outer, Cin inner (a layer whose Cin is not a multiple of its tile
+#: -- the stem -- folds the taps into one flat K).  ``native`` (route
+#: ``simt``) chains one f32 FMA per product into a partial of at most
+#: FLOAT_CHUNK["simt"] entries of one tap (of the flat K when folded); the
+#: bf16 schedules (route ``mma``) sum each FLOAT_MMA_K-entry step's limb
+#: pairs in one tensor-core fragment from zero and add it into a partial of
+#: at most FLOAT_CHUNK["mma"] entries; each partial is added into its tap
+#: group's total (where the grid is small, the taps split into groups --
+#: one, three or nine of VGG16's 3 x 3 -- summed by a second kernel in
+#: order).
+FLOAT_MMA_K = 16
+FLOAT_CHUNK = {"simt": 128, "mma": 512}
 
 
 def max_cin_block(kh: int, kw: int, *, variant: str, base_bits: int) -> int:
@@ -425,11 +447,17 @@ def conv2d_implicit_float_raw(x, w, bias=None, *, stride: int, pads: tuple,
     out = torch.empty((n, ho, wo, cout), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    passes = FLOAT_PASSES[variant]
     lib = build.library(FLOAT_LIB, _FLOAT_ARGTYPES)
+    # The bf16 limb planes and the tap groups' sums, as the kernel sizes them.
+    nbytes = lib.implicit_conv_float_scratch(n, h, wd, cin, cout, kh, kw, ho,
+                                             wo, passes)
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+               if nbytes else None)
     code = lib.implicit_conv_float_launch(
-        xc.data_ptr(), wc.data_ptr(), build.ptr(bs), out.data_ptr(), n, h,
-        wd, cin, cout, kh, kw, stride, pads[0], pads[1], ho, wo,
-        FLOAT_PASSES[variant], build.stream_ptr(xc))
+        xc.data_ptr(), wc.data_ptr(), build.ptr(bs), out.data_ptr(),
+        build.ptr(scratch), nbytes, n, h, wd, cin, cout, kh, kw, stride,
+        pads[0], pads[1], ho, wo, passes, build.stream_ptr(xc))
     name = counter or FLOAT_NAMES[variant]
     build.check_launch(lib, code, name)
     build.LAUNCHES[name] += 1

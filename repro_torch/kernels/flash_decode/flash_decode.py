@@ -7,8 +7,9 @@ cache (b, hkv, S, dh), keys at positions ``<= pos`` valid, f32 math, the
 output in q's dtype.  On the TPU the KV-block grid axis ran in order and
 combined the blocks' online-softmax partials in VMEM scratch; on the card
 the blocks are split-K partials combined by a second pass
-(``repro_torch/csrc/flash_decode.cu``, which says why).  The wrapper counts
-one launch per call (the split and combine kernels together).
+(``repro_torch/csrc/flash_decode.cu``, which says why).  The split size
+follows the grid (:func:`flash_decode_splits`).  The wrapper counts one
+launch per call (the split and combine kernels together).
 
 Masked scores are ``-1e30`` (not ``-inf``), as in the reference; since key
 0 is valid whenever ``pos >= 0``, keys past ``pos`` add exactly nothing and
@@ -28,8 +29,29 @@ NEG_INF = -1e30
 NAME = "flash_decode"
 
 _ARGTYPES = {"flash_decode_launch": [ctypes.c_void_p] * 7
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-             "flash_decode_splits": [ctypes.c_int]}
+             + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]}
+#: Keys per chunk of the kernel's cp.async ring; a split is a multiple.
+CHUNK = 64
+#: Head dims the kernel is built for (one 16-byte slice per lane).
+KERNEL_DH = (16, 32, 64, 128)
+#: Streaming multiprocessors of an H100 SXM (the wrapper asks the device).
+H100_SMS = 132
+
+
+def flash_decode_splits(S: int, b: int, hkv: int, *, sms: int = H100_SMS
+                        ) -> tuple:
+    """(keys per split, number of splits) for a cache of S keys.
+
+    The kernel runs one block per (split, kv-head, batch) and q-head group,
+    so the split is the largest multiple of :data:`CHUNK` that still gives
+    ``b * hkv * nsplit >= 2 * sms`` (every SM gets two blocks or more), and
+    one chunk where S is too short for that.
+    """
+    want = max(1, -(-2 * sms // max(1, b * hkv)))
+    split = max(CHUNK, -(-(-(-S // want)) // CHUNK) * CHUNK)
+    while split > CHUNK and -(-S // split) < want:
+        split -= CHUNK
+    return split, -(-S // split)
 
 
 def valid_keys(k_pos: torch.Tensor, pos: int) -> torch.Tensor:
@@ -86,6 +108,13 @@ def flash_decode_plain(q, k, v, pos: int, *, block_k: int = 512
     return out.reshape(b, hq, 1, dh).to(q.dtype)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernel's copies
+    are 16 bytes)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_decode_raw(q, k, v, pos: int, *, block_k: int = 512
                      ) -> torch.Tensor:
     """q (b, hq, 1, dh); k/v (b, hkv, S, dh), S a multiple of ``block_k``;
@@ -106,22 +135,24 @@ def flash_decode_raw(q, k, v, pos: int, *, block_k: int = 512
     hkv, S = k.shape[1], k.shape[2]
     if S % block_k:
         raise ValueError(f"S={S} must be a multiple of block_k={block_k}")
+    if dh not in KERNEL_DH:
+        raise ValueError(f"the kernel takes dh in {KERNEL_DH}, got {dh}")
     dev = q.device
-    q, k, v = (t.contiguous() for t in (q, k.to(dev), v.to(dev)))
+    q, k, v = (_aligned(t) for t in (q, k.to(dev), v.to(dev)))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     lib = build.library(NAME, _ARGTYPES)
-    nsplit = lib.flash_decode_splits(S)
-    pm = torch.empty((b * hq * nsplit,), dtype=torch.float32, device=dev)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((b * hq * nsplit * dh,), dtype=torch.float32,
-                       device=dev)
+    split, nsplit = flash_decode_splits(S, b, hkv, sms=build.num_sms(dev))
+    rows = b * hq * nsplit
+    scratch = torch.empty((rows * (dh + 2),), dtype=torch.float32,
+                          device=dev)  # pacc (rows, dh), then pm, pl
+    base = scratch.data_ptr()
     code = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), b, hq, hkv, S, dh, pos,
-        int(q.dtype == torch.bfloat16), float(np.float32(dh ** 0.5)),
-        build.stream_ptr(q))
+        base + 4 * rows * dh, base + 4 * rows * (dh + 1), base, b, hq, hkv,
+        S, dh, pos, split, nsplit, int(q.dtype == torch.bfloat16),
+        float(np.float32(dh ** 0.5)), build.stream_ptr(q))
     build.check_launch(lib, code, NAME)
     build.LAUNCHES[NAME] += 1
     return out

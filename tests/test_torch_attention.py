@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
                                                  flash_attention)
 from repro_torch.kernels.flash_decode import (decode_attention_ref,  # noqa: E402
                                               flash_decode)
+from repro_torch.kernels.flash_decode.flash_decode import (  # noqa: E402
+    CHUNK, NEG_INF, flash_decode_plain, flash_decode_splits)
 
 TOL_F32 = 2e-5
 TOL_BF16 = 2e-2
@@ -213,6 +215,115 @@ def test_flash_decode_masks_padded_cache():
     oracle = np.asarray(ref_decode_oracle(jnp.array(q), jnp.array(k),
                                           jnp.array(v), 10))
     assert _maxdiff(out_a.numpy(), oracle) <= TOL_F32
+
+
+#: The decode kernel's block (``csrc/flash_decode.cu``): 4 warps, each
+#: owning 16 keys of a 64-key chunk; a lane group of dh / (16 bytes) lanes
+#: shares a key and keeps its own online-softmax state.
+DECODE_WARPS = 4
+
+
+def decode_split_emulation(q, k, v, pos, *, sms=132):
+    """The decode kernel's partials and combines in f32, in its order: per
+    split of :func:`flash_decode_splits`, each lane group's online softmax
+    over its keys of each chunk (up to 4 keys per update; keys at or past
+    the split's live end score -inf, every key -1e30 when pos < 0), the
+    block's groups combined in order, then the splits."""
+    b, hq, _, dh = q.shape
+    hkv, S = k.shape[1], k.shape[2]
+    g = hq // hkv
+    lanes = dh // (16 // q.element_size())
+    kp = 32 // lanes
+    nk = CHUNK // DECODE_WARPS // kp
+    nb = min(nk, 4)
+    split, nsplit = flash_decode_splits(S, b, hkv, sms=sms)
+    grp = torch.arange(DECODE_WARPS * kp)
+    offs = ((grp // kp)[:, None] * (CHUNK // DECODE_WARPS)
+            + torch.arange(nk)[None, :] * kp + (grp % kp)[:, None])
+    denom = torch.tensor(dh ** 0.5, dtype=torch.float32)
+    q32 = q.float().reshape(b, hkv, g, dh)
+    k32, v32 = k.float(), v.float()
+    parts = []
+    for sp in range(nsplit):
+        ks0, ks1 = sp * split, min(sp * split + split, S)
+        kend = min(pos + 1, ks1) if pos >= 0 else ks1
+        ng = len(grp)
+        m = torch.full((b, hkv, g, ng), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, ng, dh))
+        if pos >= 0 and ks0 > pos:
+            parts.append((m[..., 0], l[..., 0], acc[..., 0, :]))
+            continue
+        for kc0 in range(ks0, kend, CHUNK):
+            for i0 in range(0, nk, nb):
+                idx = kc0 + offs[:, i0:i0 + nb]
+                live = idx < kend
+                kk = k32[:, :, idx.clamp(max=S - 1)]
+                vv = v32[:, :, idx.clamp(max=S - 1)] * live[..., None]
+                s = torch.einsum("bhgd,bhxnd->bhgxn", q32, kk) / denom
+                s = torch.where(live, s if pos >= 0 else NEG_INF,
+                                -torch.inf)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhgxn,bhxnd->bhgxd", p, vv)
+                m = m_new
+        mx = m.amax(dim=-1)
+        w = torch.exp(m - mx[..., None])
+        parts.append((mx, (l * w).sum(dim=-1),
+                      (acc * w[..., None]).sum(dim=-2)))
+    pm = torch.stack([p[0] for p in parts], dim=-1)
+    pl = torch.stack([p[1] for p in parts], dim=-1)
+    pacc = torch.stack([p[2] for p in parts], dim=-2)
+    e = torch.exp(pm - pm.amax(dim=-1, keepdim=True))
+    lsum = (pl * e).sum(dim=-1)
+    out = (pacc * e[..., None]).sum(dim=-2) / torch.where(
+        lsum == 0, 1.0, lsum)[..., None]
+    return out.reshape(b, hq, 1, dh).to(q.dtype)
+
+
+DECODE_SPLIT_CASES = [  # b, hq, hkv, S, pos
+    (2, 2, 2, 700, -1), (2, 2, 2, 700, 0), (2, 2, 2, 700, 64),
+    (2, 2, 2, 700, 699), (2, 8, 2, 700, -1), (2, 8, 2, 700, 0),
+    (2, 8, 2, 700, 64), (2, 8, 2, 700, 699),
+    (8, 32, 8, 4096, 1663),    # the serving shape: 832-key splits
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,S,pos", DECODE_SPLIT_CASES)
+def test_decode_split_order_matches_plain(b, hq, hkv, S, pos, dtype):
+    """The kernel's split-K order (emulated above) against the plain
+    version and, where pos >= 0, the reference's jnp oracle: S 700 is a
+    multiple of no split (64-key splits here: 11), g 1 and 4, pos -1 (every
+    key masked), 0, 64 (the first key of split 1) and S - 1; at the serving
+    shape pos ends split 1 of five 832-key splits."""
+    td = getattr(torch, dtype)
+    q, k, v = (_t(a, td) for a in _arrays((b, hq, 1, 64), (b, hkv, S, 64),
+                                           (b, hkv, S, 64)))
+    split = flash_decode_splits(S, b, hkv)[0]
+    assert S % split and (pos != 64 or split == 64)
+    got = decode_split_emulation(q, k, v, pos)
+    tol = TOL_F32 if dtype == "float32" else TOL_BF16
+    assert _maxdiff(got.float(), flash_decode_plain(
+        q, k, v, pos, block_k=S).float()) <= tol
+    if pos >= 0 and dtype == "float32":
+        oracle = ref_decode_oracle(*(jnp.array(t.numpy()) for t in (q, k, v)),
+                                   pos)
+        assert _maxdiff(got.numpy(), oracle) <= TOL_F32
+
+
+def test_decode_splits_cover_the_card():
+    """Every grid gets two blocks per SM or more; splits are whole chunks
+    and cover S with the last one short."""
+    for S in (64, 300, 700, 4000, 4096, 32768):
+        for b, hkv in ((1, 1), (2, 2), (8, 8), (64, 8)):
+            split, n = flash_decode_splits(S, b, hkv)
+            assert split % CHUNK == 0 and (n - 1) * split < S <= n * split
+            assert b * hkv * n >= 264 or split == CHUNK
+    assert flash_decode_splits(4096, 8, 8) == (832, 5)
 
 
 def tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,

@@ -310,6 +310,69 @@ def test_implicit_float_equals_plain(dev, variant, h, cin, cout, k, s, pad):
                     run(NEIGHBOUR[variant]))
 
 
+# The float conv kernel's paths, tiles and tap groups
+# (csrc/implicit_conv_float.cu): the folded-K generic path (cin 3, the
+# stem; cin 16; cout 70, not a multiple of 4), the 32-channel cp.async path
+# on both tiles (256 x 64 for cout <= 64, else 128 x 128) with 1, 3 and 9
+# tap groups (by the grid's size on an H100's 132 SMs), a cout and an
+# n*ho*wo that 128 does not divide, stride 2 and asymmetric pads.
+FLOAT_RAW_CASES = [  # n, h, w, cin, cout, k, stride, pads, out_hw
+    (2, 17, 19, 3, 64, 3, 1, (1, 1), (17, 19)),      # stem, SAME
+    (1, 23, 21, 3, 70, 3, 2, (0, 1), (11, 10)),      # stem, s2, asymmetric
+    (3, 15, 13, 32, 200, 3, 2, (0, 1), (7, 7)),      # 9 groups
+    (2, 20, 20, 64, 64, 3, 1, (1, 1), (20, 20)),     # 256 x 64, 9 groups
+    (8, 47, 47, 16, 136, 3, 1, (1, 0), (46, 47)),    # generic, 128 x 128
+    (8, 28, 28, 256, 512, 3, 1, (1, 1), (28, 28)),   # VGG16 conv4_1, 3
+    (2, 14, 14, 512, 512, 3, 1, (1, 1), (14, 14)),   # VGG16 conv5, 9
+    (8, 60, 60, 64, 256, 3, 1, (1, 1), (60, 60)),    # one group
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["native", "bf16x3", "bf16x6"])
+@pytest.mark.parametrize("n,h,w,cin,cout,k,s,pads,out_hw", FLOAT_RAW_CASES)
+def test_implicit_float_tiles_equal_plain(dev, variant, n, h, w, cin, cout,
+                                          k, s, pads, out_hw):
+    from repro_torch.kernels.conv2d.implicit_gemm import (
+        conv2d_implicit_float_raw)
+    g = torch.Generator().manual_seed(h * cin + cout + k)
+    x = torch.relu(torch.randn((n, h, w, cin), generator=g)).to(dev)
+    wt = (torch.randn((k, k, cin, cout), generator=g)
+          * (k * k * cin) ** -0.5).to(dev)
+    bias = (0.1 * torch.randn(cout, generator=g)).to(dev)
+    run = (lambda v: lambda: conv2d_implicit_float_raw(
+        x, wt, bias, stride=s, pads=pads, out_hw=out_hw, variant=v))
+    _close_to_plain(run(variant), f"implicit_conv_{variant}",
+                    run(NEIGHBOUR[variant]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["native", "bf16x3", "bf16x6"])
+def test_implicit_float_is_the_same_from_run_to_run(dev, variant):
+    """No atomics: every output is one thread's fixed-order sum."""
+    from repro_torch.kernels.conv2d.implicit_gemm import (
+        conv2d_implicit_float_raw)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 28, 28, 256), generator=g).to(dev)
+    wt = (torch.randn((3, 3, 256, 512), generator=g) * 0.02).to(dev)
+    run = lambda: conv2d_implicit_float_raw(
+        x, wt, None, stride=1, pads=(1, 1), out_hw=(28, 28), variant=variant)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.cuda
+def test_mma_probe_stays_within_the_emulated_bound(dev):
+    """One MMA's sum on the card (the probe of ``analysis/mma_probe``)
+    lies within 17 units of the largest addend's f32 grid of the exact
+    sum: the bound of the ``align`` model the CPU tests emulate (each of
+    the 16 products and C cut by less than one unit)."""
+    from repro_torch.analysis import mma_probe
+    for case in mma_probe.run(count=512).values():
+        assert case["max_err_grid"] <= 17, case
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [3, 4, 6])
 @pytest.mark.parametrize("m,k,n", [
@@ -520,6 +583,55 @@ def test_flash_decode_kernel_equals_plain(dev, b, hq, hkv, S, dh, pos):
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     _kernel_vs_plain(lambda: flash_decode(qb, kb, vb, pos), "flash_decode",
                      ATTN_TOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,S,dh,pos", [
+    (2, 8, 2, 700, 64, -1),        # pos < 0: every key masked, all walked
+    (3, 4, 4, 1000, 32, 999),      # g = 1; S no split divides
+    (2, 8, 8, 4160, 64, "split"),  # pos on the first key of split 1
+    (1, 8, 1, 5000, 128, 4999),    # g = 8: two 4-head groups, dh 128
+])
+def test_flash_decode_kernel_splits_equal_plain(dev, b, hq, hkv, S, dh, pos):
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.flash_decode import (
+        flash_decode_splits)
+    if pos == "split":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pos = flash_decode_splits(S, b, hkv, sms=sms)[0]
+    q, k, v = _attn_inputs((b, hq, 1, dh), (b, hkv, S, dh), torch.float32,
+                           dev, b + hq + S + dh)
+    mutant = None if pos < 0 else _mutated(
+        FD_MOD, "valid_keys", lambda orig: lambda kp, p: kp < p)
+    _kernel_vs_plain(lambda: flash_decode(q, k, v, pos), "flash_decode",
+                     ATTN_TOL_F32, mutant)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    _kernel_vs_plain(lambda: flash_decode(qb, kb, vb, pos), "flash_decode",
+                     ATTN_TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_flash_decode_bf16_mutant_misses_at_a_small_pos(dev):
+    """At pos 3 the key at pos carries a quarter of the weight, so the
+    ``<`` mutant moves a bf16 output by more than ATTN_TOL_BF16."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v = _attn_inputs((8, 32, 1, 64), (8, 8, 4096, 64), torch.bfloat16,
+                           dev, 3)
+    _kernel_vs_plain(lambda: flash_decode(q, k, v, 3), "flash_decode",
+                     ATTN_TOL_BF16,
+                     _mutated(FD_MOD, "valid_keys",
+                              lambda orig: lambda kp, p: kp < p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_is_the_same_from_run_to_run(dev, dtype):
+    """The block and split combines run in a fixed order (no atomics)."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v = _attn_inputs((8, 32, 1, 64), (8, 8, 4096, 64), dtype, dev, 4)
+    first = flash_decode(q, k, v, 4095)
+    for _ in range(3):
+        assert torch.equal(flash_decode(q, k, v, 4095), first)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ Phases, each fatal on failure:
 
 1. report the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the CUDA kernels from ``repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and print the build time;
+   source, all at once) and print the build time; count the int8 MMA
+   opcodes (IMMA) in the SASS: the limb GEMM and the integer implicit conv
+   must issue some, the systolic and Winograd convs none;
 3. hold each kernel against its plain PyTorch version on the card at
    AlexNet's full-width shapes (batch 16) under ``kom_int14`` and
    ``schoolbook_int16``: max abs difference must be 0; time both, and time
@@ -16,8 +18,10 @@ Phases, each fatal on failure:
    yardstick (no single PyTorch call computes the convs' quantized limb
    arithmetic);
 4. the same for the implicit kernel's pooled and handoff variants at every
-   full-width VGG16 producer and consumer shape (batch 8) and at AlexNet's
-   conv2 (pooled) and conv3 (handoff) (batch 16), both policies;
+   full-width VGG16 producer and consumer shape (batch 8), its plain
+   epilogue at VGG16's three convs between them, and at AlexNet's conv2
+   (pooled) and conv3 (handoff) (batch 16), both policies; each variant
+   summed over one VGG16 forward beside its bound;
 5. serve full-width AlexNet under ``kom_int14`` through ``CNNServeEngine``
    on its default (heuristic) plan (buckets 1/4/16): warm up, then 32
    requests; the launch counters, reset just before, must show 1
@@ -100,7 +104,10 @@ Phases, each fatal on failure:
     forward, prefill tokens/s, a profile -- and under ``fp32`` (TF32 off)
     the logits within PREFILL_TOL_FP32 of the same forward inside
     ``build.plain_versions()``;
-12. serve full-width granite-3-2b through ``ServeEngine`` (slots 4,
+12. the limb GEMM at granite-3-2b's eight decode shapes at m = 1, 4 and
+    16, exact against its plain version, with the K split its plan chose,
+    eager and CUDA-graph device times, and the per-serve_step totals;
+    serve full-width granite-3-2b through ``ServeEngine`` (slots 4,
     max_len 512, 8 requests by the launcher's prompt rule, max_new 12)
     under ``native_bf16`` and ``kom_int14``: all 8 done, decode tokens/s,
     p50/p95 engine-step time, under ``kom_int14`` 281 limb-GEMM launches
@@ -226,6 +233,9 @@ VGG16_POOLED = ((224, 64, 64), (112, 128, 128), (56, 256, 256),
                 (28, 512, 512), (14, 512, 512))
 VGG16_HANDOFF = ((112, 64, 128), (56, 128, 256), (28, 256, 512),
                  (14, 512, 512))
+#: ... and each conv between a handoff consumer and a pooled conv (the
+#: plain bias_relu epilogue).
+VGG16_PLAIN = ((56, 256, 256), (28, 512, 512), (14, 512, 512))
 #: Full-width VGG16's FC layers, (k, n).
 VGG16_FC = (("fc6", (25088, 4096)), ("fc7", (4096, 4096)),
             ("fc8", (4096, 1000)))
@@ -294,6 +304,23 @@ def bound_ms(ops: float, nbytes: float, kind: str = "int8"
     t_ops, t_bytes = ops / H100["peak_" + kind], nbytes / H100["hbm_bw"]
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def phase_sass_int() -> None:
+    """Phase 2b: the integer kernels' tensor-core opcodes (``cuobjdump
+    -sass``): the limb GEMM and the integer implicit conv must issue int8
+    MMAs (IMMA); the systolic and Winograd convs, still on the CUDA cores,
+    none."""
+    from repro_torch.kernels import build
+
+    counts = {name: build.sass_count(name, "IMMA")
+              for name in ("kom_matmul", "implicit_conv", "systolic_conv",
+                           "winograd")}
+    log(f"[sass] IMMA (int8 mma.sync) instructions per library: {counts}")
+    if not (counts["kom_matmul"] and counts["implicit_conv"]):
+        raise SystemExit("[sass] an integer MMA kernel issues no IMMA")
+    if counts["systolic_conv"] or counts["winograd"]:
+        raise SystemExit("[sass] a CUDA-core integer kernel issues IMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -515,7 +542,7 @@ def fused_calls(torch, policy: str, gen, dev) -> list:
     def act(shape):
         return torch.relu(torch.randn(shape, generator=gen)).to(dev)
 
-    def pooled(label, n, h, k, cin, cout):
+    def pooled(label, n, h, k, cin, cout, pool=(2, 2)):
         x, wv = act((n, h, h, cin)), ints((k, k, cin, cout))
         p = k // 2
         cmax = F.pad(channel_absmax(x), (p, p, p, p))
@@ -529,10 +556,11 @@ def fused_calls(torch, policy: str, gen, dev) -> list:
         ws, bias = pos((cout,)), torch.randn((cout,), generator=gen).to(dev)
         run = (lambda: conv2d_implicit_raw(
             x, wv, asc, ws, bias, stride=1, pads=(p, p), out_hw=(h, h),
-            span_c=cin, variant=variant, base_bits=bb, pool=(2, 2)))
+            span_c=cin, variant=variant, base_bits=bb, pool=pool))
         ops = 2.0 * n * h * h * k * k * cin * cout * passes
+        ho = h // 2 if pool else h
         nbytes = 4 * x.numel() + 2 * wv.numel() + 4 * asc.numel() \
-            + 8 * cout + 4 * n * (h // 2) ** 2 * cout
+            + 8 * cout + 4 * n * ho * ho * cout
         return ("implicit_conv_pool", label, run, ops, nbytes)
 
     def handoff(label, n, h, cin, cout):
@@ -547,8 +575,15 @@ def fused_calls(torch, policy: str, gen, dev) -> list:
             + 2 * wv.numel() + 8 * cout + 4 * n * h * h * cout
         return ("implicit_conv_handoff", label, run, ops, nbytes)
 
+    def plain(label, n, h, cin, cout):
+        name, _, run, ops, nbytes = pooled(label, n, h, 3, cin, cout,
+                                           pool=None)
+        return ("implicit_conv", label, run, ops, nbytes)
+
     calls = [pooled(f"v{h}", VGG_BATCH, h, 3, cin, cout)
              for h, cin, cout in VGG16_POOLED]
+    calls += [plain(f"v{h}", VGG_BATCH, h, cin, cout)
+              for h, cin, cout in VGG16_PLAIN]
     calls += [handoff(f"v{h}", VGG_BATCH, h, cin, cout)
               for h, cin, cout in VGG16_HANDOFF]
     calls.append(pooled("a-conv2", BATCH, 27, 5, 96, 256))
@@ -557,22 +592,41 @@ def fused_calls(torch, policy: str, gen, dev) -> list:
 
 
 def phase_compare_fused(torch) -> dict:
-    """Phase 4; the summary sums one VGG16 forward's calls (kom_int14)."""
+    """Phase 4; the summary sums one VGG16 forward's pooled and handoff
+    calls (kom_int14); its three plain-epilogue calls are summed in a log
+    line (the JSON row of ``implicit_conv`` stays AlexNet conv2's)."""
     from repro_torch.kernels import build
 
     gen = torch.Generator().manual_seed(2)
-    summary = {}
+    summary, vgg_plain = {}, {}
     for policy in POLICIES:
         for name, label, run, ops, nbytes in fused_calls(
                 torch, policy, gen, torch.device("cuda")):
             err, ms, plain_ms = compare_call(torch, build, policy, name,
                                              label, run, ops, nbytes)
-            if policy == "kom_int14" and label.startswith("v"):
+            if name == "implicit_conv":   # row 4a's VGG16 part, logged
+                if policy == "kom_int14":
+                    add_summary(vgg_plain, name, err, ms, plain_ms, ops,
+                                nbytes, None, False)
+            elif policy == "kom_int14" and label.startswith("v"):
                 add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
                             None, False)
             elif name in summary:
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
+    s = vgg_plain["implicit_conv"]
+    b_ms, b_by = bound_ms(s["ops"], s["bytes"], s["kind"])
+    log(f"[compare] implicit_conv (plain epilogue) over one VGG16 forward "
+        f"({len(VGG16_PLAIN)} convs, batch {VGG_BATCH}, kom_int14): "
+        f"kernel_ms={s['ms']:.4f} plain_ms={s['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / s['ms']:.1f}%)")
+    for name in ("implicit_conv_pool", "implicit_conv_handoff"):
+        s = summary[name]
+        b_ms, b_by = bound_ms(s["ops"], s["bytes"], s["kind"])
+        log(f"[compare] {name} over one VGG16 forward (batch {VGG_BATCH}, "
+            f"kom_int14): kernel_ms={s['ms']:.4f} plain_ms="
+            f"{s['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+            f"{100 * b_ms / s['ms']:.1f}%)")
     log("[compare] the pooled and handoff variants have no single PyTorch "
         "call computing the same quantized limb arithmetic: library_ms null")
     for s in summary.values():
@@ -1475,42 +1529,63 @@ GRANITE_GEMMS = (("q", (2048, 2048), 40), ("k", (2048, 512), 40),
                  ("down", (8192, 2048), 40), ("head", (2048, 49408), 1))
 
 
-def phase_compare_lm_gemm(torch) -> None:
+#: The decode GEMM's rows: one slot, the served 4 slots, a full m16 tile.
+DECODE_ROWS = (1, 4, 16)
+
+
+def phase_compare_lm_gemm(torch) -> dict:
     """Phase 10b: the limb GEMM at granite-3-2b's decode shapes under
-    kom_int14 (m = 4 slots): exact against its plain version, timed beside
-    its three int8 passes through ``torch._int_mm``; the per-serve_step
-    totals weight each shape by its count."""
+    kom_int14 at m = 1, 4 (the served slots) and 16: exact against its
+    plain version, the K split of ``kom_split_k`` printed beside each
+    shape, timed eagerly (the wrapper's Python dispatch included) and as
+    device time replayed from a CUDA graph, beside its three int8 passes
+    through ``torch._int_mm``; the per-serve_step totals weight each shape
+    by its count.  Returns the m = 4 totals."""
     from repro_torch.core.substrate import kom_qmax
     from repro_torch.kernels import build
-    from repro_torch.kernels.kom_matmul import kom_matmul_int
+    from repro_torch.kernels.kom_matmul import kom_matmul_int, kom_split_k
 
     gen = torch.Generator().manual_seed(5)
-    qmax, m = kom_qmax(7), 4
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for label, (k, n), count in GRANITE_GEMMS:
-        a = torch.randint(-qmax, qmax + 1, (m, k), generator=gen).to(
-            torch.int16).cuda()
-        b = torch.randint(-qmax, qmax + 1, (k, n), generator=gen).to(
-            torch.int16).cuda()
-        rs = (torch.rand(m, generator=gen) * 1e-3 + 1e-4).cuda()
-        cs = (torch.rand(n, generator=gen) * 1e-3 + 1e-4).cuda()
-        run = lambda a=a, b=b, rs=rs, cs=cs: kom_matmul_int(
-            a, b, variant="karatsuba", base_bits=7, row_scale=rs,
-            col_scale=cs)
-        ops = 2.0 * m * k * n * 3
-        nbytes = 2 * (m * k + k * n) + 4 * (m + n + m * n)
-        lib_ms = int_mm_passes_ms(torch, a, b, "karatsuba", 7)
-        err, ms, plain_ms = compare_call(torch, build, "kom_int14",
-                                         "kom_matmul", f"granite {label}",
-                                         run, ops, nbytes, lib_ms)
-        b_ms, _ = bound_ms(ops, nbytes, "int8")
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", b_ms)):
-            tot[key] = None if v is None or tot[key] is None \
-                else tot[key] + count * v
-    log("[compare] kom_matmul per granite serve_step (281 calls, m = 4): "
-        + ", ".join(f"{k} {v if v is None else round(v, 4)}"
-                    for k, v in tot.items()))
+    qmax = kom_qmax(7)
+    served = None
+    for m in DECODE_ROWS:
+        tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0}
+        for label, (k, n), count in GRANITE_GEMMS:
+            a = torch.randint(-qmax, qmax + 1, (m, k), generator=gen).to(
+                torch.int16).cuda()
+            b = torch.randint(-qmax, qmax + 1, (k, n), generator=gen).to(
+                torch.int16).cuda()
+            rs = (torch.rand(m, generator=gen) * 1e-3 + 1e-4).cuda()
+            cs = (torch.rand(n, generator=gen) * 1e-3 + 1e-4).cuda()
+            run = lambda a=a, b=b, rs=rs, cs=cs: kom_matmul_int(
+                a, b, variant="karatsuba", base_bits=7, row_scale=rs,
+                col_scale=cs)
+            ops = 2.0 * m * k * n * 3
+            nbytes = 2 * (m * k + k * n) + 4 * (m + n + m * n)
+            plan = kom_split_k(m, k, n)
+            log(f"[compare] kom_matmul granite {label} m={m}: split "
+                f"{plan['splits']} x {plan['group_k']} K entries, "
+                f"{plan['m_tile']}-row tile, {plan['blocks']} blocks")
+            lib_ms = int_mm_passes_ms(torch, a, b, "karatsuba", 7)
+            err, ms, plain_ms = compare_call(
+                torch, build, "kom_int14", "kom_matmul",
+                f"granite {label} m{m}", run, ops, nbytes, lib_ms)
+            graph_ms = cuda_graph_ms(run, iters=20)
+            log(f"[compare] kom_matmul granite {label} m={m}: device time "
+                f"from a CUDA graph {graph_ms:.4f} ms")
+            b_ms, _ = bound_ms(ops, nbytes, "int8")
+            for key, v in (("ms", ms), ("graph_ms", graph_ms),
+                           ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bound_ms", b_ms)):
+                tot[key] = None if v is None or tot[key] is None \
+                    else tot[key] + count * v
+        log(f"[compare] kom_matmul per granite serve_step (281 calls, m = "
+            f"{m}): " + ", ".join(f"{k} {v if v is None else round(v, 4)}"
+                                  for k, v in tot.items()))
+        if m == 4:
+            served = tot
+    return served
 
 
 def lm_params(torch, arch: str = "granite-3-2b"):
@@ -2043,6 +2118,7 @@ def main() -> int:
         for line in build.compiler_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    phase_sass_int()
     summary = phase_compare(torch)
     summary.update(phase_compare_fused(torch))
     summary.update(phase_compare_systolic_float(torch))

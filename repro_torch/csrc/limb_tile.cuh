@@ -1,6 +1,10 @@
 // Shared device code of the port's limb kernels: the balanced digit split,
 // the int8 digit-plane tiles in shared memory, the __dp4a pass schedule over
-// them, the f32 recombine and the dequant epilogue.
+// them, the f32 recombine and the dequant epilogue.  The __dp4a tiles and
+// passes (Tiles, store_a/store_b, passes) serve the kernels that still run
+// on the CUDA cores, systolic_conv.cu and winograd.cu; kom_matmul.cu and
+// implicit_conv.cu run their passes on the int8 tensor cores
+// (limb_mma.cuh) and share the digit split, recombine and epilogue here.
 //
 // Arithmetic contract (held bit for bit against the JAX reference):
 //   * balanced digits: lo = ((x + h) & (beta - 1)) - h, hi = (x - lo) >> b,

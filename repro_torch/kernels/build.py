@@ -55,7 +55,7 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "mlstm_chunk": "mlstm_chunk.cu",
 }
-HEADERS = ("limb_tile.cuh", "float_tile.cuh")
+HEADERS = ("limb_tile.cuh", "limb_mma.cuh", "float_tile.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -141,8 +141,8 @@ def build(names=None) -> dict:
 def sass_count(name: str, pattern: str) -> int:
     """SASS instructions of the built library ``name`` (``cuobjdump -sass``,
     from the toolkit beside ``nvcc``) whose opcode matches ``pattern``: how
-    a run shows which units a kernel uses (``HGMMA``: wgmma, ``HMMA``:
-    mma.sync)."""
+    a run shows which units a kernel uses (``HGMMA``: bf16 wgmma, ``HMMA``:
+    bf16 mma.sync, ``IMMA``: int8 mma.sync)."""
     import re
     tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
     build([name])

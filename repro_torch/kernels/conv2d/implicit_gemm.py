@@ -4,8 +4,11 @@ Replaces the TPU kernel ``repro/kernels/conv2d/implicit_gemm.py:
 _implicit_kernel`` (``conv2d_implicit_raw``).  The GEMM is M = output
 pixels, K = kh*kw*cin, N = cout, with no patch matrix in device memory.
 Three integer variants share one CUDA source
-(``repro_torch/csrc/implicit_conv.cu``), each with its plain PyTorch
-version here:
+(``repro_torch/csrc/implicit_conv.cu``: int8 ``mma.sync`` passes on the
+tensor cores over digit planes -- the weight's split once per call by a
+first kernel, the gathered input's once per K step -- and a ``cp.async``
+ring of both; its K walk is :func:`implicit_k_steps`), each with its
+plain PyTorch version here:
 
 * **bias_relu** (:func:`conv2d_implicit_raw_plain`): activations are
   quantized per PATCH as they are gathered, the three int32 limb partials
@@ -64,8 +67,10 @@ NAME = "implicit_conv"
 POOL_NAME, HANDOFF_NAME = "implicit_conv_pool", "implicit_conv_handoff"
 #: Pool windows (window, stride) the kernel fuses; others pool after it.
 KERNEL_POOLS = ((2, 2),)
-_ARGTYPES = {"implicit_conv_launch": [ctypes.c_void_p] * 7
-             + [ctypes.c_int] * 20 + [ctypes.c_void_p]}
+_ARGTYPES = {"implicit_conv_launch": [ctypes.c_void_p] * 8
+             + [ctypes.c_longlong] + [ctypes.c_int] * 20 + [ctypes.c_void_p],
+             "implicit_conv_scratch": ([ctypes.c_int] * 6,
+                                       ctypes.c_longlong)}
 #: The float variants' library and each variant's launch-counter name.
 FLOAT_LIB = "implicit_conv_float"
 FLOAT_NAMES = {v: f"implicit_conv_{v}" for v in FLOAT_PASSES}
@@ -122,6 +127,41 @@ def group_spans(cin: int, block_cin: int, fold_every: int) -> tuple:
     """Channel spans [(c0, c1), ...] of the recombine groups."""
     step = fold_every * block_cin
     return tuple((c0, min(c0 + step, cin)) for c0 in range(0, cin, step))
+
+
+#: Input channels of one K step of the integer kernel: two int8 MMA depths.
+IMPLICIT_STEP_C = 64
+
+
+def implicit_k_steps(kh: int, kw: int, cin: int, span_c: int, *,
+                     handoff: bool) -> list:
+    """The integer kernel's K walk: ``(tap, c0, c1, folds)`` per step.
+
+    A step is channels [c0, c1) of one tap, at most
+    :data:`IMPLICIT_STEP_C` wide and cut at the end of its group of
+    ``span_c`` channels, so no step straddles a group.  ``folds``: the
+    step closes an int32 -> f32 fold.  Quantizing input: per group, the
+    channel steps outer and the taps inner, one fold per group.  Handoff:
+    per chunk of ``span_c`` (the plan's bk), the taps outer and the
+    channel steps inner, one fold per (chunk, tap).  Within a fold the
+    int32 sums are exact in any order; the folds come in the reference's
+    order.
+    """
+    taps = kh * kw
+    steps = []
+    for g0 in range(0, cin, span_c):
+        g1 = min(g0 + span_c, cin)
+        subs = [(c0, min(c0 + IMPLICIT_STEP_C, g1))
+                for c0 in range(g0, g1, IMPLICIT_STEP_C)]
+        if handoff:
+            for tap in range(taps):
+                steps += [(tap, c0, c1, i == len(subs) - 1)
+                          for i, (c0, c1) in enumerate(subs)]
+        else:
+            for i, (c0, c1) in enumerate(subs):
+                steps += [(tap, c0, c1, i == len(subs) - 1
+                           and tap == taps - 1) for tap in range(taps)]
+    return steps
 
 
 def _check(x, w_vals, ascale, wscale, bias, stride, out_hw, span_c,
@@ -283,10 +323,16 @@ def conv2d_implicit_handoff_plain(q, grid, w_vals, wscale, bias=None, *,
                             else bias.to(torch.float32))
 
 
-def _launch(lib_args, out, name):
-    """Launch the library's kernel, check the launch, count it as ``name``."""
+def _launch(lib_args, out, name, *, cin, cout, kh, kw, span_c, karatsuba):
+    """Launch the library's kernels (the weight's digit planes into a
+    scratch the library sizes, then the conv), check the launch, count it
+    once as ``name``."""
     lib = build.library(NAME, _ARGTYPES)
-    code = lib.implicit_conv_launch(*lib_args)
+    nbytes = lib.implicit_conv_scratch(cin, cout, kh, kw, span_c,
+                                       int(karatsuba))
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=out.device)
+    code = lib.implicit_conv_launch(*lib_args[:7], scratch.data_ptr(),
+                                    nbytes, *lib_args[7:])
     build.check_launch(lib, code, name)
     build.LAUNCHES[name] += 1
     return out
@@ -334,7 +380,8 @@ def conv2d_implicit_raw(x, w_vals, ascale, wscale, bias=None, *,
          pads[0], pads[1], ho, wo, span_c, kom_qmax(base_bits), base_bits,
          int(variant == "karatsuba"), int(pool is not None), 0, hp, wp,
          build.stream_ptr(xc)),
-        out, NAME if pool is None else POOL_NAME)
+        out, NAME if pool is None else POOL_NAME, cin=cin, cout=cout, kh=kh,
+        kw=kw, span_c=span_c, karatsuba=variant == "karatsuba")
 
 
 def conv2d_implicit_handoff_raw(q, grid, w_vals, wscale, bias=None, *,
@@ -374,7 +421,8 @@ def conv2d_implicit_handoff_raw(q, grid, w_vals, wscale, bias=None, *,
          0, 0, ho, wo, bk, kom_qmax(base_bits), base_bits,
          int(variant == "karatsuba"), int(pool is not None), 1, hp, wp,
          build.stream_ptr(qv)),
-        out, HANDOFF_NAME)
+        out, HANDOFF_NAME, cin=cin, cout=cout, kh=3, kw=3, span_c=bk,
+        karatsuba=variant == "karatsuba")
 
 
 def _check_float(x, w, bias, stride, out_hw, variant):

@@ -9,9 +9,16 @@ recombined once in f32.  The port's wrapper also takes the dequant epilogue
 (per-row x per-channel scales, optional bias), because the reference's
 jitted forward fuses ``raw * t + b`` into one FMA that must happen before
 the result leaves the kernel.  It carries the RGB stem's im2col GEMM and
-every FC layer of the integer serving path.
+every FC layer of the integer serving path, and every projection of the LM
+side under ``kom_int14``.
 
-The CUDA source is ``repro_torch/csrc/kom_matmul.cu``.
+The CUDA source is ``repro_torch/csrc/kom_matmul.cu``: the passes run on
+the int8 tensor cores (``mma.sync`` m16n8k32, the weight's n on the MMA's
+16-row side), each warp streams 32 x 64 weight tiles through its own
+``cp.async`` ring, and small grids split K across blocks
+(:func:`kom_split_k`); a second kernel adds the splits' int32 accumulators
+(exact in any order, so the result does not depend on the split) and runs
+the recombine and the epilogue.  One wrapper call counts one launch.
 
 The bf16-limb GEMM (:func:`bf16x3_matmul`) replaces the TPU kernel
 ``repro/kernels/kom_matmul/kom_matmul.py:_bf16_kernel``
@@ -29,6 +36,7 @@ to run.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +45,7 @@ from repro_torch.core.substrate import (dequant_epilogue, limb_partials,
                                         limb_recombine)
 from repro_torch.kernels import build
 
-_ARGTYPES = {"kom_matmul_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_ARGTYPES = {"kom_matmul_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_void_p]}
 _BF16_ARGTYPES = {"bf16_matmul_launch": [ctypes.c_void_p] * 4
                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
@@ -51,6 +59,14 @@ BF16_MIN_GROUP_K = 256
 BF16_TILE_K = 32
 BF16_BLOCK_N = 128
 BF16_TARGET_BLOCKS = 264
+
+#: The limb GEMM's tiles (``csrc/kom_matmul.cu``): KOM_TILE_N weight
+#: columns per block, K in chunks of KOM_CHUNK_K (one MMA depth).  K splits
+#: across blocks until the grid has KOM_TARGET_BLOCKS blocks (two per SM
+#: of an H100), down to one chunk a split (:func:`kom_split_k`).
+KOM_TILE_N = 64
+KOM_CHUNK_K = 32
+KOM_TARGET_BLOCKS = 264
 
 NAME = "kom_matmul"
 BF16_NAME = "bf16_matmul"
@@ -74,6 +90,48 @@ def _check_args(a_q, b_q, variant, base_bits, row_scale, col_scale, bias):
         if t is not None and tuple(t.shape) != want:
             raise ValueError(f"{what} must have shape {want}, got "
                              f"{tuple(t.shape)}")
+
+
+def kom_split_k(m: int, k: int, n: int) -> dict:
+    """How the limb GEMM kernel tiles and splits an (m, k) x (k, n) product.
+
+    ``m_tile``: activation rows per block: 8 (m <= 8) or 16 (m <= 16),
+    the four warps splitting the block's K chunks, else 64, 16 rows a
+    warp.  ``splits``: K groups of ``group_k`` entries (a multiple of
+    :data:`KOM_CHUNK_K`), ``bounds`` their [k0, k1) ranges in order, the
+    last one short; one block per (64 columns, ``m_tile`` rows, group).
+    The fewest splits that give :data:`KOM_TARGET_BLOCKS` blocks, one when
+    the tiles alone do, as many as there are chunks when nothing does.
+    ``lda``/``ldb``: ``k``/``n`` padded to a multiple of 8 (the kernel
+    reads both operands in 16-byte copies; the wrapper pads them with zeros
+    where they are not: the RGB stems' k = 363 and 27).  ``scratch``: the
+    int32 shape (splits, 3, m, n) of the splits' accumulators, which the
+    combine kernel adds, or None for one split (the blocks then write C).
+    """
+    if min(m, n) <= 0 or k < 0:
+        raise ValueError(f"bad GEMM shape ({m}, {k}) x ({k}, {n})")
+    m_tile = 8 if m <= 8 else 16 if m <= 16 else 64
+    tiles = -(-n // KOM_TILE_N) * -(-m // m_tile)
+    chunks = max(-(-k // KOM_CHUNK_K), 1)
+    need = -(-KOM_TARGET_BLOCKS // tiles)
+    # The split counts a group length can give are ceil(chunks / g); the
+    # longest g with ceil(chunks / g) >= need gives the fewest, then the
+    # shortest g with that count balances the groups.
+    g = chunks if need <= 1 else max(-(-chunks // (need - 1)) - 1, 1)
+    group = -(-chunks // -(-chunks // g))
+    group_k = group * KOM_CHUNK_K
+    bounds = [(k0, min(k, k0 + group_k)) for k0 in range(0, k, group_k)] \
+        or [(0, 0)]
+    return {"m_tile": m_tile, "group_k": group_k, "splits": len(bounds),
+            "bounds": bounds, "blocks": tiles * len(bounds),
+            "lda": -(-k // 8) * 8, "ldb": -(-n // 8) * 8,
+            "scratch": (len(bounds), 3, m, n) if len(bounds) > 1 else None}
+
+
+#: The wrapper's plans, built once per shape (a plan costs tens of
+#: microseconds of host time, a decode step makes 281 calls).  Read only:
+#: the dicts are shared.
+_split_plan = functools.lru_cache(maxsize=None)(kom_split_k)
 
 
 def kom_matmul_int_plain(a_q: torch.Tensor, b_q: torch.Tensor, *,
@@ -123,10 +181,19 @@ def kom_matmul_int(a_q: torch.Tensor, b_q: torch.Tensor, *,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
+    plan = _split_plan(m, k, n)
+    if plan["lda"] != k:
+        a = torch.nn.functional.pad(a, (0, plan["lda"] - k))
+    if plan["ldb"] != n:
+        b = torch.nn.functional.pad(b, (0, plan["ldb"] - n))
+    a, b = _aligned16(a), _aligned16(b)
+    scratch = None if plan["scratch"] is None else torch.empty(
+        plan["scratch"], dtype=torch.int32, device=dev)
     lib = build.library(NAME, _ARGTYPES)
     code = lib.kom_matmul_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), build.ptr(rs),
-        build.ptr(cs), build.ptr(bs), m, n, k, base_bits,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), build.ptr(scratch),
+        build.ptr(rs), build.ptr(cs), build.ptr(bs), m, n, k, plan["lda"],
+        plan["ldb"], plan["group_k"], plan["m_tile"], base_bits,
         int(variant == "karatsuba"), build.stream_ptr(a))
     build.check_launch(lib, code, NAME)
     build.LAUNCHES[NAME] += 1

@@ -213,6 +213,133 @@ def test_reduced_model_fused_plan_on_card_equals_plain_on_cpu(dev, arch,
     assert torch.equal(got.cpu(), want)
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core limb GEMM and integer implicit conv (csrc/limb_mma.cuh):
+# small-M and 64-row tiles, K splits, ragged K / N, every conv mode.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64])
+@pytest.mark.parametrize("k,n", [(300, 90), (2100, 70), (4096, 1000),
+                                 (363, 96), (300, 16900)])
+def test_limb_gemm_tiles_equal_plain(dev, variant, base_bits, m, k, n):
+    """k off the 32-entry chunk (300, 2100, 363: odd, element loads), n off
+    8 (90, 70, 16900: the padded weight) and off the 64-column tile; m in
+    the 8-, 16- and 64-row tiles; the plan splits K at every shape but the
+    last, whose 265 column tiles fill the grid."""
+    from repro_torch.kernels.kom_matmul import kom_split_k
+    g = torch.Generator().manual_seed(m * k + n)
+    qmax = sub.kom_qmax(base_bits)
+    a = torch.randint(-qmax, qmax + 1, (m, k), generator=g).to(dev)
+    b = torch.randint(-qmax, qmax + 1, (k, n), generator=g).to(dev)
+    rs = (torch.rand(m, generator=g) * 1e-3).to(dev)
+    cs = (torch.rand(n, generator=g) * 1e-3).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    kw = dict(variant=variant, base_bits=base_bits)
+    assert (kom_split_k(m, k, n)["splits"] == 1) == (n == 16900)
+    _same_as_plain(lambda: kom_matmul_int(a, b, **kw))
+    _same_as_plain(lambda: kom_matmul_int(a, b, row_scale=rs, col_scale=cs,
+                                          bias=bias, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+@pytest.mark.parametrize("m,k,n", [
+    (4, 31, 512), (4, 32, 512), (4, 33, 512),      # one split | two
+    (4, 64, 16896), (4, 64, 16832),                # 264 tiles | 263: two
+])
+def test_limb_gemm_either_side_of_a_split_boundary(dev, variant, base_bits,
+                                                   m, k, n):
+    from repro_torch.kernels.kom_matmul import kom_split_k
+    g = torch.Generator().manual_seed(k + n)
+    qmax = sub.kom_qmax(base_bits)
+    a = torch.randint(-qmax, qmax + 1, (m, k), generator=g).to(dev)
+    b = torch.randint(-qmax, qmax + 1, (k, n), generator=g).to(dev)
+    rs = (torch.rand(m, generator=g) * 1e-3).to(dev)
+    cs = (torch.rand(n, generator=g) * 1e-3).to(dev)
+    assert kom_split_k(m, k, n)["splits"] == (1 if (k, n) in (
+        (31, 512), (32, 512), (64, 16896)) else 2)
+    _same_as_plain(lambda: kom_matmul_int(a, b, variant=variant,
+                                          base_bits=base_bits, row_scale=rs,
+                                          col_scale=cs))
+
+
+@pytest.mark.cuda
+def test_limb_gemm_digit_sum_pass_wraps_like_plain(dev):
+    """Karatsuba's digit-sum pass past 2^31 at k = 140000: the s32 MMA
+    accumulators and the split sums wrap as the plain version's int32."""
+    a = torch.full((1, 140000), -8127, dtype=torch.int16, device=dev)
+    b = torch.full((140000, 8), -8127, dtype=torch.int16, device=dev)
+    _same_as_plain(lambda: kom_matmul_int(a, b, variant="karatsuba",
+                                          base_bits=7))
+
+
+def _implicit_case(dev, g, mode, n, h, k, cin, cout, base_bits):
+    """Inputs for one raw implicit call: (run, launch-counter name)."""
+    from repro_torch.kernels.conv2d.implicit_gemm import (
+        conv2d_implicit_handoff_raw, conv2d_implicit_raw)
+    qmax = sub.kom_qmax(base_bits)
+    x = torch.relu(torch.randn((n, h, h, cin), generator=g)).to(dev)
+    wv = torch.randint(-qmax, qmax + 1, (k, k, cin, cout),
+                       generator=g).to(torch.int16).to(dev)
+    ws = (torch.rand(cout, generator=g) * 1e-3 + 1e-4).to(dev)
+    bias = torch.randn(cout, generator=g).to(dev)
+    pool = (2, 2) if "pool" in mode else None
+    if "handoff" in mode:
+        qa = ops.handoff_quantize(x, base_bits=base_bits)
+        return lambda span, v: conv2d_implicit_handoff_raw(
+            qa.values, qa.scale, wv, ws, bias, bk=span, variant=v,
+            base_bits=base_bits, pool=pool), "implicit_conv_handoff"
+    asc = (torch.rand((n, h, h), generator=g) * 0.02 + 1e-3).to(dev)
+    return lambda span, v: conv2d_implicit_raw(
+        x, wv, asc, ws, bias, stride=1, pads=(k // 2, k // 2),
+        out_hw=(h, h), span_c=span, variant=v, base_bits=base_bits,
+        pool=pool), "implicit_conv_pool" if pool else "implicit_conv"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+@pytest.mark.parametrize("mode", ["plain", "pool", "handoff",
+                                  "pool_handoff"])
+@pytest.mark.parametrize("n,h,k,cin,cout,span", [
+    (2, 15, 3, 70, 200, 40),   # odd map; cin, span off the 32-channel
+                               # step; 2 groups; cout off the 128 tile
+    (1, 9, 3, 37, 33, 37),     # cin, cout unaligned: element loads
+    (2, 8, 3, 64, 64, 64),     # cout 64: half the tile's warps idle
+    (3, 14, 3, 256, 130, 256), # a VGG-like depth, one group
+])
+def test_implicit_conv_modes_equal_plain(dev, variant, base_bits, mode, n, h,
+                                         k, cin, cout, span):
+    g = torch.Generator().manual_seed(h * cin + cout)
+    run, name = _implicit_case(dev, g, mode, n, h, k, cin, cout, base_bits)
+    build.reset_launches()
+    _same_as_plain(lambda: run(span, variant))
+    assert build.launch_counts() == {name: 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+@pytest.mark.parametrize("mode", ["plain", "pool"])
+def test_implicit_conv_alexnet_conv2_equals_plain(dev, variant, base_bits,
+                                                  mode):
+    """AlexNet conv2: 5 x 5, 96 -> 256 at 27 x 27, batch 4."""
+    g = torch.Generator().manual_seed(27)
+    run, _ = _implicit_case(dev, g, mode, 4, 27, 5, 96, 256, base_bits)
+    _same_as_plain(lambda: run(96, variant))
+
+
+@pytest.mark.cuda
+def test_integer_kernels_issue_int8_mma(dev):
+    """The limb GEMM and the integer implicit conv run their passes as
+    int8 MMAs (IMMA in the SASS); the systolic and Winograd convs still
+    run theirs on the CUDA cores."""
+    for name in ("kom_matmul", "implicit_conv"):
+        assert build.sass_count(name, "IMMA") > 0, name
+    for name in ("systolic_conv", "winograd"):
+        assert build.sass_count(name, "IMMA") == 0, name
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_input_on_the_card(dev):
     a = torch.zeros((4, 8), dtype=torch.int16, device=dev)

@@ -9,14 +9,16 @@ Phases, each fatal on failure:
 1. report the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the CUDA kernels from ``repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build time; count the int8 MMA
-   opcodes (IMMA) in the SASS: the limb GEMM and the integer implicit conv
-   must issue some, the systolic and Winograd convs none;
+   opcodes (IMMA) in the SASS: all four integer libraries (the limb GEMM,
+   the implicit, systolic and Winograd convs) must issue some;
 3. hold each kernel against its plain PyTorch version on the card at
    AlexNet's full-width shapes (batch 16) under ``kom_int14`` and
    ``schoolbook_int16``: max abs difference must be 0; time both, and time
    the limb GEMM's three int8 passes through ``torch._int_mm`` as a
    yardstick (no single PyTorch call computes the convs' quantized limb
-   arithmetic);
+   arithmetic); run the implicit kernel on Winograd's layers (conv3-5)
+   with the same tile scales: its output must equal Winograd's bit for
+   bit, and both are timed;
 4. the same for the implicit kernel's pooled and handoff variants at every
    full-width VGG16 producer and consumer shape (batch 8), its plain
    epilogue at VGG16's three convs between them, and at AlexNet's conv2
@@ -57,8 +59,10 @@ Phases, each fatal on failure:
    and bf16x6; native for bf16x3) on the same inputs must miss it.  Times
    beside one PyTorch call for the same function: ``F.conv2d`` (fp32,
    channels-last) for the float convs, ``torch.matmul`` (fp32) for the
-   GEMM; each float conv variant's sum over the 13 convs of one forward
-   beside ``F.conv2d``'s and the bound;
+   GEMM, and for the integer systolic conv ``torch._int_mm`` once per
+   int8 pass over the im2col of its int16 input, split into digit planes
+   before timing; each conv's sum over the 13 convs of one forward beside
+   the library's and the bound;
 8. serve full-width VGG16 under ``kom_int14`` with every conv pinned to
    the systolic engine (``conv_path="systolic"``, buckets 1/4/8, 16
    requests): per forward 13 systolic and 3 limb-GEMM launches, logits
@@ -308,19 +312,17 @@ def bound_ms(ops: float, nbytes: float, kind: str = "int8"
 
 def phase_sass_int() -> None:
     """Phase 2b: the integer kernels' tensor-core opcodes (``cuobjdump
-    -sass``): the limb GEMM and the integer implicit conv must issue int8
-    MMAs (IMMA); the systolic and Winograd convs, still on the CUDA cores,
-    none."""
+    -sass``): all four integer libraries -- the limb GEMM, the implicit,
+    systolic and Winograd convs -- must issue int8 MMAs (IMMA)."""
     from repro_torch.kernels import build
 
     counts = {name: build.sass_count(name, "IMMA")
               for name in ("kom_matmul", "implicit_conv", "systolic_conv",
                            "winograd")}
     log(f"[sass] IMMA (int8 mma.sync) instructions per library: {counts}")
-    if not (counts["kom_matmul"] and counts["implicit_conv"]):
-        raise SystemExit("[sass] an integer MMA kernel issues no IMMA")
-    if counts["systolic_conv"] or counts["winograd"]:
-        raise SystemExit("[sass] a CUDA-core integer kernel issues IMMA")
+    missing = [name for name, c in counts.items() if not c]
+    if missing:
+        raise SystemExit(f"[sass] integer kernels issue no IMMA: {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +340,7 @@ def alexnet_calls(torch, policy: str, gen, dev) -> list:
     from repro_torch.kernels.conv2d.ops import patch_scales
     from repro_torch.kernels.conv2d.winograd import (
         channel_absmax, conv2d_winograd_raw, tile_scales_from_cmax,
-        winograd_weight_planes)
+        tile_scales_upsampled, winograd_weight_planes)
     from repro_torch.kernels.kom_matmul import kom_matmul_int
 
     variant, bb = INT_POLICY_SPECS[policy]
@@ -382,11 +384,15 @@ def alexnet_calls(torch, policy: str, gen, dev) -> list:
     nbytes = 4 * x.numel() + 2 * wv.numel() + 4 * asc.numel() + 8 * 256 \
         + 4 * BATCH * 27 * 27 * 256
     calls.append(("implicit_conv", "conv2", run, ops, nbytes, (x, wv)))
-    # Winograd: conv3-5, 3x3 at 13x13, SAME.
+    # Winograd: conv3-5, 3x3 at 13x13, SAME.  The last item of a call is
+    # the implicit engine on the same layer with the same tile scales (the
+    # reference holds the two bitwise equal): Winograd's raw sums are 4x
+    # the conv's and its channel scale a quarter, both exact.
     for label, cin, cout in (("conv3", 256, 384), ("conv4", 384, 384),
                              ("conv5", 384, 256)):
         x = torch.relu(randn((BATCH, 13, 13, cin)))
-        uh, ul = winograd_weight_planes(ints((3, 3, cin, cout)), bb)
+        wv = ints((3, 3, cin, cout))
+        uh, ul = winograd_weight_planes(wv, bb)
         s_tile = tile_scales_from_cmax(
             F.pad(channel_absmax(x), (1, 1, 1, 1)), qmax, 7, 7).contiguous()
         ws4, bias = pos((cout,)), randn((cout,))
@@ -394,10 +400,17 @@ def alexnet_calls(torch, policy: str, gen, dev) -> list:
                conv2d_winograd_raw(x, uh, ul, s, ws4, bias, pads=(1, 1),
                                    out_hw=(13, 13), variant=variant,
                                    base_bits=bb))
+        asc = tile_scales_upsampled(s_tile, 13, 13).contiguous()
+        implicit = (lambda x=x, wv=wv, asc=asc, ws=ws4 * 4, bias=bias:
+                    conv2d_implicit_raw(x, wv, asc, ws, bias, stride=1,
+                                        pads=(1, 1), out_hw=(13, 13),
+                                        span_c=cin, variant=variant,
+                                        base_bits=bb))
         ops = 2.0 * 16 * BATCH * 49 * cin * cout * passes
         nbytes = 4 * x.numel() + 2 * (uh.numel() + ul.numel()) \
             + 4 * s_tile.numel() + 8 * cout + 4 * BATCH * 13 * 13 * cout
-        calls.append(("winograd", label, run, ops, nbytes, (x, uh)))
+        calls.append(("winograd", label, run, ops, nbytes,
+                      (x, uh, implicit)))
     return calls
 
 
@@ -426,6 +439,20 @@ def int_mm_passes_ms(torch, a16, b16, variant, bb) -> float | None:
     except RuntimeError as e:  # shape constraints of this torch build
         log(f"  library yardstick unavailable: {e}")
         return None
+
+
+def im2col_int_mm_ms(torch, xq, wq, pad, variant, bb) -> float | None:
+    """Yardstick for the systolic conv: its int8 passes as ``torch._int_mm``
+    calls over the im2col of the int16 input and the flat weight, both
+    built and split into digit planes before timing."""
+    import torch.nn.functional as F
+    n, h, w, cin = xq.shape
+    kh, kw, _, cout = wq.shape
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(kh)
+                      for dx in range(kw)], dim=3)
+    return int_mm_passes_ms(torch, cols.reshape(n * h * w, kh * kw * cin),
+                            wq.reshape(kh * kw * cin, cout), variant, bb)
 
 
 def compare_call(torch, build, policy, name, label, run, ops, nbytes,
@@ -481,12 +508,27 @@ def add_summary(summary, name, err, ms, plain_ms, ops, nbytes, lib_ms,
         s["library_ms"] = None if lib_ms is None else s["library_ms"] + lib_ms
 
 
+def winograd_vs_implicit(torch, policy, label, run, implicit) -> tuple:
+    """The implicit engine on a Winograd layer, same tile scales: its
+    output must equal Winograd's bit for bit; both timed."""
+    got, want = run(), implicit()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit(f"winograd/{label}/{policy}: Winograd != implicit "
+                         f"(max_abs_err={float((got - want).abs().max())})")
+    w_ms = cuda_ms(run, iters=10)
+    i_ms = cuda_ms(implicit, iters=10)
+    log(f"[compare] {policy:16s} {label}: winograd == implicit engine bit "
+        f"for bit; winograd_ms={w_ms:.4f} implicit_ms={i_ms:.4f}")
+    return w_ms, i_ms
+
+
 def phase_compare(torch) -> dict:
     from repro_torch.core.substrate import INT_POLICY_SPECS
     from repro_torch.kernels import build
 
     gen = torch.Generator().manual_seed(0)
-    summary = {}
+    summary, engines = {}, {}
     for policy in POLICIES:
         variant, bb = INT_POLICY_SPECS[policy]
         for name, label, run, ops, nbytes, args in alexnet_calls(
@@ -497,9 +539,18 @@ def phase_compare(torch) -> dict:
                                           bb)
             err, ms, plain_ms = compare_call(torch, build, policy, name,
                                              label, run, ops, nbytes, lib_ms)
+            if name == "winograd":
+                t = engines.setdefault(policy, [0.0, 0.0])
+                for i, v in enumerate(winograd_vs_implicit(
+                        torch, policy, label, run, args[2])):
+                    t[i] += v
             if policy == "kom_int14":
                 add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
                             lib_ms, name == "kom_matmul")
+    for policy, (w_ms, i_ms) in engines.items():
+        log(f"[compare] AlexNet conv3-5 ({policy}, batch {BATCH}): winograd "
+            f"{w_ms:.4f} ms, the implicit engine on the same layers "
+            f"{i_ms:.4f} ms (the same bits)")
     log("[compare] the implicit and Winograd convs have no single PyTorch "
         "call computing the same quantized limb arithmetic: library_ms null")
     for s in summary.values():
@@ -699,8 +750,10 @@ def systolic_float_calls(torch, gen, dev) -> list:
             nbytes = 2 * (xq.numel() + wq.numel()) + 4 * (
                 scale.numel() + cout) + out_bytes
             passes = 3 if variant == "karatsuba" else 4
+            lib_ms = None if label == alex2[0] else im2col_int_mm_ms(
+                torch, xq, wq, pad, variant, bb)
             calls.append(("systolic_conv", policy, label, run,
-                          2 * macs * passes, nbytes, "int8", None, None,
+                          2 * macs * passes, nbytes, "int8", None, lib_ms,
                           policy == "kom_int14" and label != alex2[0], None))
         if label == alex2[0]:
             continue
@@ -764,7 +817,7 @@ def phase_compare_systolic_float(torch) -> dict:
                              f"emulated model's bound: {r}")
 
     gen = torch.Generator().manual_seed(3)
-    summary, schoolbook_ms, gemm = {}, 0.0, {}
+    summary, schoolbook, gemm = {}, [0.0, 0.0], {}
     for (name, policy, label, run, ops, nbytes, kind, tol, lib_ms,
          summed, control) in systolic_float_calls(torch, gen,
                                                   torch.device("cuda")):
@@ -785,7 +838,9 @@ def phase_compare_systolic_float(torch) -> dict:
             if s is not None:
                 s["max_abs_err"] = max(s["max_abs_err"], err)
             if policy == "schoolbook_int16" and label.startswith("v"):
-                schoolbook_ms += ms
+                schoolbook[0] += ms
+                schoolbook[1] = (None if None in (lib_ms, schoolbook[1])
+                                 else schoolbook[1] + lib_ms)
     for (policy, m), (ms, lib_ms, b_ms) in gemm.items():
         log(f"[compare] bf16_matmul {policy} m={m} over fc6+fc7+fc8: "
             f"kernel_ms={ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f}")
@@ -797,10 +852,13 @@ def phase_compare_systolic_float(torch) -> dict:
             f"library_ms={s['library_ms']:.4f} (F.conv2d fp32) "
             f"bound_ms={b_ms:.4f} ({b_by}, {s['kind']}, "
             f"{100 * b_ms / s['ms']:.1f}%)")
-    log(f"[compare] systolic_conv schoolbook_int16: {schoolbook_ms:.4f} ms "
-        "over the VGG16 geometries; the integer systolic conv has no single "
-        "PyTorch call computing the same quantized limb arithmetic: "
-        "library_ms null")
+    s = summary["systolic_conv"]
+    fmt = lambda v: "null" if v is None else f"{v:.4f}"
+    log(f"[compare] systolic_conv over one VGG16 forward (13 convs, batch "
+        f"{VGG_BATCH}): kom_int14 kernel_ms={s['ms']:.4f} library_ms="
+        f"{fmt(s['library_ms'])}; schoolbook_int16 kernel_ms="
+        f"{schoolbook[0]:.4f} library_ms={fmt(schoolbook[1])} (library: "
+        "torch._int_mm over the im2col's digit planes, one call per pass)")
     for s in summary.values():
         s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"],
                                                 s["kind"])

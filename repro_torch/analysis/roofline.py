@@ -11,8 +11,8 @@ constant is used here.  Each variant's passes are priced at the peak of
 the type they multiply (:func:`variant_peak`): the integer limb passes at
 the int8 rate, the bf16x3/bf16x6 limb passes and ``native_bf16``'s bf16
 products at the bf16 rate, native f32 at the f32 rate.  The port's
-kernels run their passes on the CUDA cores (``__dp4a``, ``__fmaf_rn``),
-far below the tensor-core peaks, so the compute term is a floor, not a
+kernels (``mma.sync``/``wgmma`` on the tensor cores, f32 FMAs on the CUDA
+cores) run far below these peaks, so the compute term is a floor, not a
 prediction; it is what the explorer's ``--model-only`` mode ranks by, and
 what ``chip_smoke.py`` reports as each kernel's bound.
 """

@@ -35,8 +35,9 @@
 //   * the passes run on the tensor cores, eight warps of 32 x 32 outputs,
 //     two MMA depths (32 channels each) per step;
 //   * a first kernel splits the weight once per call into packed digit
-//     planes (pack_weight_kernel), each group padded to whole steps, so a
-//     step's B tile is whole quad rows that land by 16-byte cp.async;
+//     planes (conv_mma.cuh pack_weight_kernel), each group padded to whole
+//     steps, so a step's B tile is whole quad rows that land by 16-byte
+//     cp.async;
 //   * a 4-stage cp.async ring carries each step's gathered input pixels
 //     (f32, or int16 for the handoff; zero-filled outside the map, so the
 //     padding stays indexing) and its weight planes; the MMAs read the
@@ -53,13 +54,18 @@
 // time, the load issue (address arithmetic, integer division by the
 // kernel width) nearly as much; hence the reciprocal, the 64-channel steps
 // and the per-thread copy state kept in registers.
-#include "limb_mma.cuh"
+// The weight packing, the ring walk, the input split and the MMA step are
+// conv_mma.cuh's, shared with systolic_conv.cu.
+#include "conv_mma.cuh"
 
 namespace {
 
+using cmma::A_F32_LD;
+using cmma::A_I16_LD;
+using cmma::BK;  // input channels per K step: two MMA depths
+using cmma::KQ;  // K quads per step
 constexpr int BM = 64;    // output pixels (conv rows) per block
 constexpr int BN = 128;   // output channels per block
-constexpr int BK = 64;    // input channels per K step: two MMA depths
 constexpr int WARPS_N = BN / 32, WARPS = 2 * WARPS_N;  // 2 x 4 warps
 constexpr int THREADS = 32 * WARPS;                    // 256
 // Ring slots: a step's weight planes stay in its slot until its MMAs are
@@ -71,12 +77,9 @@ constexpr int OUTSIDE = -(1 << 28);
 
 // Shared memory: the ring (per stage the raw input tile, then the weight's
 // digit planes), two buffers of the input's digit planes, row tables.
-constexpr int A_F32_LD = BK + 4;   // floats per raw input row
-constexpr int A_I16_LD = BK + 8;   // int16 per raw handoff row
 constexpr int A_RAW = BM * A_F32_LD * 4;
 constexpr int PA_LD = BM + 8;      // words per plane row (K quad) of A
 constexpr int PB_LD = BN + 8;
-constexpr int KQ = BK / 4;         // K quads per step
 constexpr int PA = 3 * KQ * PA_LD; // words: [plane][K quad][row]
 constexpr int PB = 3 * KQ * PB_LD; // words: [plane][K quad][column]
 constexpr int STAGE = A_RAW + PB * 4;
@@ -98,40 +101,6 @@ struct ConvArgs {
   int k4p;    // packed K quads per tap and plane
   int coutp;  // words per packed row: cout padded to a multiple of 4
 };
-
-// The weight's digit planes, once per call: Wp[tap][plane][K quad][n], the
-// four channels of a quad packed as int8 lanes (the MMA's B fragment
-// words).  Each group of span_c channels starts on a BK boundary (its
-// quads padded with zeros), so every K step's B tile is KQ whole quad rows.
-template <bool KARATSUBA>
-__global__ void pack_weight_kernel(const int16_t* __restrict__ Wt,
-                                   uint32_t* __restrict__ Wp, int taps,
-                                   int cin, int cout, int span_c, int lp,
-                                   int k4p, int coutp, int base_bits) {
-  constexpr int P = KARATSUBA ? 3 : 2;
-  const long long total = (long long)taps * k4p * coutp;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const int n = (int)(i % coutp);
-    const int k4 = (int)((i / coutp) % k4p);
-    const int tap = (int)(i / ((long long)coutp * k4p));
-    int h[4], l[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kk = 4 * k4 + j, g = kk / lp, off = kk - g * lp;
-      const int c = g * span_c + off;
-      const bool ok = off < span_c && c < cin && n < cout;
-      const int v = ok ? (int)Wt[((size_t)tap * cin + c) * cout + n] : 0;
-      limb::balanced_split(v, base_bits, h[j], l[j]);
-    }
-    uint32_t* row = Wp + (size_t)tap * P * k4p * coutp + (size_t)k4 * coutp + n;
-    row[0] = (uint32_t)limb::pack4(h[0], h[1], h[2], h[3]);
-    row[(size_t)k4p * coutp] = (uint32_t)limb::pack4(l[0], l[1], l[2], l[3]);
-    if (KARATSUBA)
-      row[(size_t)2 * k4p * coutp] = (uint32_t)limb::pack4(
-          h[0] + l[0], h[1] + l[1], h[2] + l[2], h[3] + l[3]);
-  }
-}
 
 // A position in the block's K walk: group (chunk) gi = [g0, g1), step
 // channels [c0, min(c0 + BK, g1)), tap = (dy, dx), all kept incrementally
@@ -252,56 +221,11 @@ __device__ __forceinline__ void load_raw(const ConvArgs& a, const Smem& sm,
     }
   }
   // B: the step's KQ quad rows of each digit plane, columns n0..n0+BN-1.
-  constexpr int P = KARATSUBA ? 3 : 2, CPR = BN / 4;
-  uint32_t* pb = reinterpret_cast<uint32_t*>(base + A_RAW);
-  const uint32_t* wrow =
-      a.Wp + ((size_t)ks.tap * P * a.k4p + ks.quad0(a)) * a.coutp;
-  const int u = tid % CPR, n = n0 + 4 * u;
-  const bool ok = n < a.coutp;
-#pragma unroll
-  for (int i = 0; i < P * KQ * CPR / THREADS; ++i) {
-    const int q = tid + i * THREADS, p = q / (KQ * CPR), k = (q / CPR) % KQ;
-    lmma::cp_async16(pb + (p * KQ + k) * PB_LD + 4 * u,
-                     ok ? wrow + ((size_t)p * a.k4p + k) * a.coutp + n : a.Wp,
-                     ok);
-  }
-}
-
-// Quantizes (unless HANDOFF) and splits one step's raw input tile into
-// digit planes [plane][K quad][row].  Every item of a thread is on its row
-// r = tid % BM, whose scale s and reciprocal rc the caller holds.
-template <bool KARATSUBA, bool HANDOFF>
-__device__ __forceinline__ void split_step(const ConvArgs& a,
-                                           const char* base, int nvalid,
-                                           float s, float rc,
-                                           uint32_t* pa,
-                                           const lmma::Digits& dg) {
-  const int r = threadIdx.x % BM;
-#pragma unroll
-  for (int i = 0; i < BM * KQ / THREADS; ++i) {
-    const int k4 = threadIdx.x / BM + i * (THREADS / BM);
-    const int live = nvalid - 4 * k4;  // channels of this quad in the step
-    uint32_t w01, w23;
-    if (HANDOFF) {
-      const uint2 v = *reinterpret_cast<const uint2*>(
-          base + (r * A_I16_LD + 4 * k4) * 2);
-      w01 = live >= 2 ? v.x : live == 1 ? (v.x & 0xffffu) : 0u;
-      w23 = live >= 4 ? v.y : live == 3 ? (v.y & 0xffffu) : 0u;
-    } else {
-      const float4 v = *reinterpret_cast<const float4*>(
-          base + (r * A_F32_LD + 4 * k4) * 4);
-      const int q0 = live > 0 ? lmma::quantize_rcp(v.x, s, rc, a.qmax) : 0;
-      const int q1 = live > 1 ? lmma::quantize_rcp(v.y, s, rc, a.qmax) : 0;
-      const int q2 = live > 2 ? lmma::quantize_rcp(v.z, s, rc, a.qmax) : 0;
-      const int q3 = live > 3 ? lmma::quantize_rcp(v.w, s, rc, a.qmax) : 0;
-      w01 = lmma::lanes2(q0, q1);
-      w23 = lmma::lanes2(q2, q3);
-    }
-    const lmma::Quad q = lmma::row_quad<KARATSUBA>(w01, w23, dg);
-    pa[(0 * KQ + k4) * PA_LD + r] = q.h;
-    pa[(1 * KQ + k4) * PA_LD + r] = q.l;
-    if (KARATSUBA) pa[(2 * KQ + k4) * PA_LD + r] = q.s;
-  }
+  constexpr int P = KARATSUBA ? 3 : 2;
+  cmma::load_b<P, KQ, BN, PB_LD, THREADS>(
+      reinterpret_cast<uint32_t*>(base + A_RAW),
+      a.Wp + ((size_t)ks.tap * P * a.k4p + ks.quad0(a)) * a.coutp, a.Wp,
+      a.k4p, a.coutp, n0);
 }
 
 template <bool KARATSUBA, bool POOL, bool HANDOFF>
@@ -403,112 +327,54 @@ __global__ void __launch_bounds__(THREADS)
   ld.start(a);
   sp.start(a);
   mm.start(a);
+  cmma::ring_walk<STAGES>(
+      nst,
+      [&](int st, bool live) {
+        if (live)
+          load_raw<KARATSUBA, HANDOFF>(a, sm, ximg, n0, ld, ac, stage(st));
+        ld.next(a);
+      },
+      [&](int st, bool live) {
+        if (live)
+          cmma::split_step<KARATSUBA, HANDOFF, BM, THREADS, PA_LD>(
+              stage(st), sp.c1() - sp.c0, row_s, row_rc, a.qmax,
+              sm.planes + (st & 1) * PA, dg);
+        sp.next(a);
+      },
+      [&](int st) {
+        // Two MMA depths per step; the second only where the step has
+        // more than 32 channels (a group's last step may be shorter).
+        if (live_cols)
+          cmma::mma_step<KARATSUBA, PA_LD, PB_LD>(
+              sm.planes + (st & 1) * PA,
+              reinterpret_cast<const uint32_t*>(stage(st) + A_RAW),
+              mm.c1() - mm.c0 > BK / 2 ? 2 : 1, wm * 32, wn * 32, g, t4, hh,
+              xx, ll);
+      },
+      [&](int) {
+        if (mm.folds(a)) {
+          // Fold the exact int32 sums into the f32 sum (one recombine
+          // each); HANDOFF: times the tap's power-of-two cell scale first.
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nst)
-      load_raw<KARATSUBA, HANDOFF>(a, sm, ximg, n0, ld, ac, stage(st));
-    lmma::cp_async_commit();
-    ld.next(a);
-  }
-  lmma::cp_async_wait<STAGES - 2>();
-  __syncthreads();
-  split_step<KARATSUBA, HANDOFF>(a, stage(0), sp.c1() - sp.c0, row_s, row_rc,
-                                 sm.planes, dg);
-  sp.next(a);
-
-  for (int s = 0; s < nst; ++s) {
-    // Groups committed: STAGES - 1 + s; steps 0..s+1 must have landed.
-    lmma::cp_async_wait<STAGES - 3>();
-    __syncthreads();  // input planes of s ready; step s+1 landed; the MMAs
-                      // of s-1 are done, so its slot and planes are free
-    if (s + STAGES - 1 < nst)
-      load_raw<KARATSUBA, HANDOFF>(a, sm, ximg, n0, ld, ac,
-                                   stage(s + STAGES - 1));
-    lmma::cp_async_commit();
-    ld.next(a);
-
-    if (live_cols) {
-      const uint32_t* pa = sm.planes + (s & 1) * PA;
-      const uint32_t* pb =
-          reinterpret_cast<const uint32_t*>(stage(s) + A_RAW);
-      // Two MMA depths per step; the second only where the step has more
-      // than 32 channels (a group's last step may be shorter).
-      const int depths = mm.c1() - mm.c0 > BK / 2 ? 2 : 1;
-      for (int d = 0; d < depths; ++d) {
-        lmma::FragA fa[2];
-        lmma::FragB fb[4];
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = wm * 32 + 16 * j + g;
-          const uint32_t* p0 = pa + (8 * d + t4) * PA_LD + r;
-          const uint32_t* p1 = p0 + 4 * PA_LD;
-          fa[j].h[0] = p0[0];
-          fa[j].h[1] = p0[8];
-          fa[j].h[2] = p1[0];
-          fa[j].h[3] = p1[8];
-          fa[j].l[0] = p0[KQ * PA_LD];
-          fa[j].l[1] = p0[KQ * PA_LD + 8];
-          fa[j].l[2] = p1[KQ * PA_LD];
-          fa[j].l[3] = p1[KQ * PA_LD + 8];
-          if (KARATSUBA) {
-            fa[j].s[0] = p0[2 * KQ * PA_LD];
-            fa[j].s[1] = p0[2 * KQ * PA_LD + 8];
-            fa[j].s[2] = p1[2 * KQ * PA_LD];
-            fa[j].s[3] = p1[2 * KQ * PA_LD + 8];
-          }
+            for (int c = 0; c < 4; ++c) {
+              const int r = wm * 32 + 16 * j + g + 8 * (c >> 1);
+              const float cell = HANDOFF ? sm.s_cell[mm.tap * BM + r] : 1.0f;
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int mid = limb::mid_of<KARATSUBA>(
+                    hh[j][i][c], xx[j][i][c], ll[j][i][c]);
+                const float rec = limb::recombine(hh[j][i][c], mid,
+                                                  ll[j][i][c], a.base_bits);
+                acc[j][i][c] = __fadd_rn(
+                    acc[j][i][c], HANDOFF ? __fmul_rn(cell, rec) : rec);
+                hh[j][i][c] = xx[j][i][c] = ll[j][i][c] = 0;
+              }
+            }
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int n = wn * 32 + 8 * i + g;
-          const uint32_t* q0 = pb + (8 * d + t4) * PB_LD + n;
-          const uint32_t* q1 = q0 + 4 * PB_LD;
-          fb[i].h[0] = q0[0];
-          fb[i].h[1] = q1[0];
-          fb[i].l[0] = q0[KQ * PB_LD];
-          fb[i].l[1] = q1[KQ * PB_LD];
-          if (KARATSUBA) {
-            fb[i].s[0] = q0[2 * KQ * PB_LD];
-            fb[i].s[1] = q1[2 * KQ * PB_LD];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            lmma::passes<KARATSUBA>(fa[j], fb[i], hh[j][i], xx[j][i],
-                                    ll[j][i]);
-      }
-    }
-    // Split the next step while the tensor cores run this one's MMAs.
-    if (s + 1 < nst)
-      split_step<KARATSUBA, HANDOFF>(a, stage(s + 1), sp.c1() - sp.c0, row_s,
-                                     row_rc, sm.planes + ((s + 1) & 1) * PA,
-                                     dg);
-    sp.next(a);
-    if (mm.folds(a)) {
-      // Fold the exact int32 sums into the f32 sum (one recombine each);
-      // HANDOFF: times the tap's power-of-two cell scale first.
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = wm * 32 + 16 * j + g + 8 * (c >> 1);
-          const float cell = HANDOFF ? sm.s_cell[mm.tap * BM + r] : 1.0f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int mid =
-                limb::mid_of<KARATSUBA>(hh[j][i][c], xx[j][i][c], ll[j][i][c]);
-            const float rec = limb::recombine(hh[j][i][c], mid, ll[j][i][c],
-                                              a.base_bits);
-            acc[j][i][c] = __fadd_rn(acc[j][i][c],
-                                     HANDOFF ? __fmul_rn(cell, rec) : rec);
-            hh[j][i][c] = xx[j][i][c] = ll[j][i][c] = 0;
-          }
-        }
-    }
-    mm.next(a);
-  }
-  lmma::cp_async_wait<0>();
+        mm.next(a);
+      });
 
   if (POOL) {
     // The lane's rows g, g+8 of tiles 0 and 1 are window offsets 0..3 of
@@ -572,22 +438,6 @@ cudaError_t launch(dim3 grid_dim, cudaStream_t st, const ConvArgs& a) {
   return cudaGetLastError();
 }
 
-// The packed weight's geometry: (lp, k4p, coutp) as ConvArgs holds them.
-struct Packing {
-  int lp, k4p, coutp;
-  Packing(int cin, int cout, int span_c) {
-    const int span = span_c < cin ? span_c : cin;
-    const int groups = (cin + span - 1) / span;
-    const int last = cin - (groups - 1) * span;
-    lp = (span + BK - 1) / BK * BK;
-    k4p = ((groups - 1) * lp + (last + BK - 1) / BK * BK) / 4;
-    coutp = (cout + 3) / 4 * 4;
-  }
-  long long bytes(int taps, bool karatsuba) const {
-    return 4LL * taps * (karatsuba ? 3 : 2) * k4p * coutp;
-  }
-};
-
 }  // namespace
 
 LIMB_EXPORT_ERROR_STRING
@@ -597,7 +447,7 @@ LIMB_EXPORT_ERROR_STRING
 extern "C" long long implicit_conv_scratch(int cin, int cout, int kh, int kw,
                                            int span_c, int karatsuba) {
   if (cin < 1 || cout < 1 || span_c < 1) return 0;
-  return Packing(cin, cout, span_c).bytes(kh * kw, karatsuba != 0);
+  return cmma::Packing(cin, cout, span_c).bytes(kh * kw, karatsuba != 0);
 }
 
 // X: (n, H, W, cin) f32 unpadded, or with `handoff` the (n, h+2, w+2, cin)
@@ -616,7 +466,7 @@ extern "C" int implicit_conv_launch(
     int kw, int stride, int pad_t, int pad_l, int ho, int wo, int span_c,
     int qmax, int base_bits, int karatsuba, int pool, int handoff, int hp,
     int wp, void* stream) {
-  const Packing pk(cin, cout, span_c);
+  const cmma::Packing pk(cin, cout, span_c);
   if (span_c < 1 || base_bits < 2 || base_bits > 8 ||
       (handoff && (kh != 3 || kw != 3)) ||
       scratch_bytes < pk.bytes(kh * kw, karatsuba != 0) ||
@@ -655,16 +505,9 @@ extern "C" int implicit_conv_launch(
   a.a_vec = cin % per == 0 && span_c % per == 0 &&
             reinterpret_cast<uintptr_t>(X) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  {
-    const long long words = (long long)kh * kw * pk.k4p * pk.coutp;
-    const int blocks = (int)((words + 255) / 256 < 4096 ? (words + 255) / 256
-                                                        : 4096);
-    auto* kp = karatsuba ? pack_weight_kernel<true> : pack_weight_kernel<false>;
-    kp<<<blocks, 256, 0, st>>>(static_cast<const int16_t*>(Wt),
-                                static_cast<uint32_t*>(scratch), kh * kw, cin,
-                                cout, span_c, pk.lp, pk.k4p, pk.coutp,
-                                base_bits);
-  }
+  cmma::pack_weight(static_cast<const int16_t*>(Wt),
+                    static_cast<uint32_t*>(scratch), kh * kw, cin, cout,
+                    span_c, pk, base_bits, karatsuba != 0, st);
   const int rows = pool ? (hp * wp + PP - 1) / PP : (ho * wo + BM - 1) / BM;
   const dim3 g((cout + BN - 1) / BN, rows, n);
   cudaError_t e;

@@ -1,5 +1,6 @@
 // Shared device code of the limb kernels that run their int8 passes on the
-// tensor cores (kom_matmul.cu, implicit_conv.cu): the balanced digit split of
+// tensor cores (kom_matmul.cu, and through conv_mma.cuh implicit_conv.cu,
+// systolic_conv.cu and winograd.cu): the balanced digit split of
 // two int16 lanes at once, the byte transposes into the packed K-quads of
 // the mma.sync fragments, the m16n8k32 s8 MMA and the pass schedule.
 //
@@ -15,7 +16,7 @@
 // 16+4t..; a3 = row g+8, K 16+4t..; B (32 x 8, col) b0 = K 4t..4t+3 of
 // column g, b1 = K 16+4t.. of column g; every register holds four K entries
 // as int8 lanes, K 4t in byte 0.  D (16 x 8) d0, d1 = row g, columns 2t,
-// 2t+1; d2, d3 = row g+8.  That is the packing of limb::Tiles: four
+// 2t+1; d2, d3 = row g+8.  So a packed digit plane holds four
 // consecutive K entries of one row or column per 32-bit word.
 #pragma once
 
@@ -141,8 +142,8 @@ __device__ __forceinline__ void passes(const FragA& a, const FragB& b,
   }
 }
 
-// limb::quantize's clip(rint(x / s), +-qmax) with the same IEEE quotient
-// at three full-rate float operations, from rc = RN(1/s) (__frcp_rn, once
+// clip(rint(x / s), +-qmax) with IEEE division and round-half-to-even (the
+// plain version's quantize_values), at three full-rate float operations, from rc = RN(1/s) (__frcp_rn, once
 // per scale): q = RN(x rc) lies within an ulp of x / s, and Markstein's
 // correction RN(q + RN(x - q s) rc) is then the correctly rounded quotient
 // (Markstein's theorem; no term underflows where the integer can be

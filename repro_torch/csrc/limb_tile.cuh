@@ -1,10 +1,7 @@
 // Shared device code of the port's limb kernels: the balanced digit split,
-// the int8 digit-plane tiles in shared memory, the __dp4a pass schedule over
-// them, the f32 recombine and the dequant epilogue.  The __dp4a tiles and
-// passes (Tiles, store_a/store_b, passes) serve the kernels that still run
-// on the CUDA cores, systolic_conv.cu and winograd.cu; kom_matmul.cu and
-// implicit_conv.cu run their passes on the int8 tensor cores
-// (limb_mma.cuh) and share the digit split, recombine and epilogue here.
+// the int8 lane packing, the f32 recombine and the dequant epilogue.  The
+// limb kernels run their int8 passes on the tensor cores (limb_mma.cuh,
+// conv_mma.cuh) and share these pieces.
 //
 // Arithmetic contract (held bit for bit against the JAX reference):
 //   * balanced digits: lo = ((x + h) & (beta - 1)) - h, hi = (x - lo) >> b,
@@ -48,91 +45,11 @@ __device__ __forceinline__ float dequant(float raw, float s_row, float s_col,
   return bias ? __fmaf_rn(raw, t, bias[col]) : __fmul_rn(raw, t);
 }
 
-// Quantize one activation: clip(rint(x / s), -qmax, qmax) with IEEE division
-// and round-half-to-even (never roundf, which rounds halves away from 0).
-__device__ __forceinline__ int quantize(float x, float s, int qmax) {
-  float r = rintf(__fdiv_rn(x, s));
-  r = fminf(fmaxf(r, -(float)qmax), (float)qmax);
-  return (int)r;
-}
-
 __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
   const unsigned u = ((unsigned)a & 0xffu) | (((unsigned)b & 0xffu) << 8) |
                      (((unsigned)c & 0xffu) << 16) |
                      (((unsigned)d & 0xffu) << 24);
   return (int)u;
-}
-
-// Digit planes of one K-step in shared memory: four consecutive K entries of
-// a row (of A) or column (of B) packed as int8 lanes of one int, ready for
-// __dp4a.  Plane 0 = hi digits, 1 = lo digits, 2 = hi + lo (Karatsuba).
-template <int BM, int BN, int BK4>
-struct Tiles {
-  int a[3][BK4][BM + 1];  // +1: spread the loader's column writes over banks
-  int b[3][BK4][BN];
-};
-
-template <int BM, int BN, int BK4>
-__device__ __forceinline__ void store_a(Tiles<BM, BN, BK4>& s, int m, int k4,
-                                        const int q[4], int base_bits) {
-  int h[4], l[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) balanced_split(q[j], base_bits, h[j], l[j]);
-  s.a[0][k4][m] = pack4(h[0], h[1], h[2], h[3]);
-  s.a[1][k4][m] = pack4(l[0], l[1], l[2], l[3]);
-  s.a[2][k4][m] = pack4(h[0] + l[0], h[1] + l[1], h[2] + l[2], h[3] + l[3]);
-}
-
-template <int BM, int BN, int BK4>
-__device__ __forceinline__ void store_b(Tiles<BM, BN, BK4>& s, int n, int k4,
-                                        const int q[4], int base_bits) {
-  int h[4], l[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) balanced_split(q[j], base_bits, h[j], l[j]);
-  s.b[0][k4][n] = pack4(h[0], h[1], h[2], h[3]);
-  s.b[1][k4][n] = pack4(l[0], l[1], l[2], l[3]);
-  s.b[2][k4][n] = pack4(h[0] + l[0], h[1] + l[1], h[2] + l[2], h[3] + l[3]);
-}
-
-// One thread's TM x TN outputs at rows ty + i*(BM/TM), cols tx + j*(BN/TN):
-// the int8 passes of one K-step into the three int32 accumulators.  For
-// Karatsuba `x` accumulates the digit-sum pass; for schoolbook, the mid
-// cross terms.
-template <int BM, int BN, int BK4, int TM, int TN, bool KARATSUBA>
-__device__ __forceinline__ void passes(const Tiles<BM, BN, BK4>& s, int ty,
-                                       int tx, int (&hh)[TM][TN],
-                                       int (&x)[TM][TN], int (&ll)[TM][TN]) {
-#pragma unroll
-  for (int k4 = 0; k4 < BK4; ++k4) {
-    int ah[TM], al[TM], as[TM], bh[TN], bl[TN], bs[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = ty + i * (BM / TM);
-      ah[i] = s.a[0][k4][m];
-      al[i] = s.a[1][k4][m];
-      as[i] = KARATSUBA ? s.a[2][k4][m] : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = tx + j * (BN / TN);
-      bh[j] = s.b[0][k4][n];
-      bl[j] = s.b[1][k4][n];
-      bs[j] = KARATSUBA ? s.b[2][k4][n] : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        hh[i][j] = __dp4a(ah[i], bh[j], hh[i][j]);
-        ll[i][j] = __dp4a(al[i], bl[j], ll[i][j]);
-        if (KARATSUBA) {
-          x[i][j] = __dp4a(as[i], bs[j], x[i][j]);
-        } else {
-          x[i][j] = __dp4a(al[i], bh[j], __dp4a(ah[i], bl[j], x[i][j]));
-        }
-      }
-    }
-  }
 }
 
 // The mid partial from the accumulators (Karatsuba: sum - hh - ll), in

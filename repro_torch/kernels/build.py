@@ -55,7 +55,8 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "mlstm_chunk": "mlstm_chunk.cu",
 }
-HEADERS = ("limb_tile.cuh", "limb_mma.cuh", "float_tile.cuh")
+HEADERS = ("limb_tile.cuh", "limb_mma.cuh", "conv_mma.cuh",
+           "float_tile.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

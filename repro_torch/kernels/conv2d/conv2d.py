@@ -17,10 +17,14 @@ Cin.  Variants:
   that kernel (``implicit_gemm.conv2d_implicit_float_raw``) and counts its
   launches as :data:`NATIVE_NAME`; the raw wrapper here is integer only.
 
-The CUDA source is ``repro_torch/csrc/systolic_conv.cu``.  The two bounds
-below are what every limb conv engine's exactness model derives from: the
-systolic engine needs :func:`int_accum_bound` below 2^31 (its wrapper
-reroutes deeper layers to the implicit engine).
+The CUDA source is ``repro_torch/csrc/systolic_conv.cu``: int8
+``mma.sync`` passes on the tensor cores over digit planes, M = n*ho*wo
+output pixels flattened over the batch.  Its block tile, K walk and K
+split are :func:`systolic_plan` (the CPU tests emulate
+:func:`systolic_k_steps`).  The two bounds below are what every limb conv
+engine's exactness model derives from: the systolic engine needs
+:func:`int_accum_bound` below 2^31 (its wrapper reroutes deeper layers to
+the implicit engine).
 """
 from __future__ import annotations
 
@@ -37,8 +41,14 @@ SYSTOLIC_VARIANTS = ("karatsuba", "schoolbook", "native")
 NAME = "systolic_conv"
 #: Launch-counter name of the native variant (the implicit float kernel).
 NATIVE_NAME = "systolic_conv_native"
-_ARGTYPES = {"systolic_conv_launch": [ctypes.c_void_p] * 5
-             + [ctypes.c_int] * 14 + [ctypes.c_void_p]}
+_ARGTYPES = {"systolic_conv_launch": [ctypes.c_void_p] * 6
+             + [ctypes.c_longlong] + [ctypes.c_int] * 18 + [ctypes.c_void_p],
+             "systolic_conv_scratch": ([ctypes.c_int] * 8,
+                                       ctypes.c_longlong)}
+#: K entries of one systolic K step: two int8 MMA depths of 32.
+SYSTOLIC_STEP_K = 64
+#: The most K splits the systolic plan takes.
+SYSTOLIC_MAX_SPLITS = 8
 
 
 def limb_term_bound(variant: str, base_bits: int) -> int:
@@ -52,6 +62,69 @@ def int_accum_bound(kh: int, kw: int, cin: int, *, variant: str,
                     base_bits: int) -> int:
     """Worst-case |value| of the widest int32 accumulator over kh*kw*cin."""
     return limb_term_bound(variant, base_bits) * kh * kw * cin
+
+
+#: A K split must cut the waves per unit of work to this share or less.
+SPLIT_GAIN = 0.8
+
+
+def grid_k_splits(tiles: int, steps: int, *, sms: int,
+                  max_splits: int) -> int:
+    """How many runs to split a kernel's K steps into over grid.z: the
+    count (at most ``max_splits`` and ``steps``) that keeps the fewest
+    waves of ``tiles`` blocks per unit of work on ``sms`` SMs (one block
+    per SM), where it cuts them to :data:`SPLIT_GAIN` or less of the
+    unsplit grid's; else 1.  The splits' int32 sums add exactly."""
+    if tiles < 1:
+        return 1
+    waves = lambda z: -(-tiles * z // sms) / z
+    best = min(range(1, min(max_splits, steps) + 1),
+               key=lambda z: (waves(z), z))
+    return best if waves(best) <= SPLIT_GAIN * waves(1) else 1
+
+
+def systolic_plan(n: int, ho: int, wo: int, kh: int, kw: int, cin: int,
+                  cout: int, *, vector: bool, sms: int) -> dict:
+    """The systolic kernel's block tile, K walk and K split.
+
+    Rows are the n*ho*wo output pixels.  The block tile is 64 x 128, or
+    128 x 64 where cout <= 64.  A K step is :data:`SYSTOLIC_STEP_K`
+    channels of one tap; without 16-byte copies (``vector``: cin % 8 == 0
+    and an aligned input) the walk runs over the flat (tap, channel) index
+    instead (``flat``; the RGB stem's 27 entries are one step).  The steps
+    split into ``splits`` runs of ``per_split`` (grid.z) by
+    :func:`grid_k_splits` (at most :data:`SYSTOLIC_MAX_SPLITS`).
+    """
+    flat = not vector
+    bm, bn = (128, 64) if cout <= 64 else (64, 128)
+    m = n * ho * wo
+    kdim = kh * kw * cin if flat else cin
+    csteps = -(-kdim // SYSTOLIC_STEP_K)
+    nsteps = csteps * (1 if flat else kh * kw)
+    tiles = -(-m // bm) * -(-cout // bn)
+    splits = grid_k_splits(tiles, nsteps, sms=sms,
+                           max_splits=SYSTOLIC_MAX_SPLITS)
+    per_split = -(-nsteps // splits)
+    splits = -(-nsteps // per_split)
+    return {"flat": flat, "wm": bm // 32, "bm": bm, "bn": bn, "m": m,
+            "kdim": kdim, "csteps": csteps, "nsteps": nsteps,
+            "tiles": tiles, "splits": splits, "per_split": per_split}
+
+
+def systolic_k_steps(plan: dict, cin: int) -> list:
+    """The kernel's K walk: per split, its steps as ranges [k0, k1) of the
+    flat (tap, channel) index of an HWIO weight (a step never straddles a
+    tap unless the walk is flat).  The int32 sums are exact in any order;
+    the splits add their sums as integers."""
+    steps = []
+    for s in range(plan["nsteps"]):
+        tap, j = divmod(s, plan["csteps"])
+        c0 = j * SYSTOLIC_STEP_K
+        c1 = min(c0 + SYSTOLIC_STEP_K, plan["kdim"])
+        base = 0 if plan["flat"] else tap * cin
+        steps.append((base + c0, base + c1))
+    ps = plan["per_split"]
+    return [steps[i:i + ps] for i in range(0, len(steps), ps)]
 
 
 def _check(x, w, scale, bias, stride, out_hw, variant, base_bits):
@@ -155,12 +228,20 @@ def conv2d_systolic_raw(x, w, scale=None, bias=None, *, stride: int,
     if out.numel() == 0:
         return out
     lib = build.library(NAME, _ARGTYPES)
-    geom = (n, h, wd, cin, cout, kh, kw, stride, pads[0], pads[1], ho, wo)
     xc = x.to(torch.int16).contiguous()
     wc = w.to(device=dev, dtype=torch.int16).contiguous()
+    plan = systolic_plan(n, ho, wo, kh, kw, cin, cout,
+                         vector=cin % 8 == 0 and xc.data_ptr() % 16 == 0,
+                         sms=build.num_sms(dev))
+    karatsuba = int(variant == "karatsuba")
+    nbytes = lib.systolic_conv_scratch(cin, cout, kh, kw, int(plan["flat"]),
+                                       plan["m"], plan["splits"], karatsuba)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     code = lib.systolic_conv_launch(
         xc.data_ptr(), wc.data_ptr(), build.ptr(f32(scale)), build.ptr(bs),
-        out.data_ptr(), *geom, base_bits, int(variant == "karatsuba"),
+        out.data_ptr(), scratch.data_ptr(), nbytes, n, h, wd, cin, cout, kh,
+        kw, stride, pads[0], pads[1], ho, wo, base_bits, karatsuba,
+        int(plan["flat"]), plan["wm"], plan["splits"], plan["per_split"],
         build.stream_ptr(xc))
     build.check_launch(lib, code, NAME)
     build.LAUNCHES[NAME] += 1

@@ -3,7 +3,13 @@
 The port of ``repro/kernels/conv2d/winograd.py``.  Its TPU kernel
 ``_winograd_kernel`` (``conv2d_winograd_raw``) becomes the CUDA kernel in
 ``repro_torch/csrc/winograd.cu``; :func:`conv2d_winograd_raw_plain` beside
-the wrapper repeats its arithmetic in PyTorch.
+the wrapper repeats its arithmetic in PyTorch.  The kernel runs the
+pointwise contractions as int8 ``mma.sync`` on the tensor cores: every
+transformed plane splits once more into two balanced int8 sub-digits of
+base 2^:data:`WINOGRAD_SUB_BITS`, and each point's contraction over a chunk
+of :data:`WINOGRAD_CHUNK` channels folds into the inverse transform in
+int32; :func:`winograd_plan` splits the chunks over grid.z (the CPU tests
+emulate that walk).
 
 The transforms live in the quantized-limb INTEGER domain (every matrix has
 entries in {-1, 0, 1, 2}), so
@@ -28,7 +34,7 @@ from repro_torch.core.substrate import (F32_EXACT, activation_scale,
                                         quantize_values)
 from repro_torch.kernels import build
 
-from .conv2d import int_accum_bound
+from .conv2d import grid_k_splits, int_accum_bound
 
 BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
 G2 = ((2, 0, 0), (1, 1, 1), (1, -1, 1), (0, 0, 2))
@@ -40,8 +46,34 @@ WINOGRAD_OUTPUT_SCALE = 4
 _INT_VARIANTS = ("karatsuba", "schoolbook")
 
 NAME = "winograd"
-_ARGTYPES = {"winograd_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
-             + [ctypes.c_void_p]}
+_ARGTYPES = {"winograd_launch": [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+             "winograd_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong)}
+#: The kernel's sub-digit base: X = 2^7 X1 + X0, balanced, both int8.
+WINOGRAD_SUB_BITS = 7
+#: Input channels of one chunk of the kernel's walk: one int8 MMA depth.
+WINOGRAD_CHUNK = 32
+#: Winograd tiles and output channels of one block of the kernel (its
+#: BM, BN).
+WINOGRAD_BLOCK = (16, 128)
+#: The most K splits the plan takes.
+WINOGRAD_MAX_SPLITS = 4
+
+
+def winograd_plan(tiles: int, cin: int, cout: int, *, sms: int) -> dict:
+    """The kernel's grid: blocks of :data:`WINOGRAD_BLOCK` (tiles flattened
+    over the batch), and the chunks of :data:`WINOGRAD_CHUNK` channels split
+    into ``splits`` runs of ``per_split`` over grid.z by
+    :func:`~repro_torch.kernels.conv2d.conv2d.grid_k_splits`; the splits
+    add their int32 inverse-transform sums as integers."""
+    bm, bn = WINOGRAD_BLOCK
+    blocks = -(-tiles // bm) * -(-cout // bn)
+    chunks = -(-cin // WINOGRAD_CHUNK)
+    splits = grid_k_splits(blocks, chunks, sms=sms,
+                           max_splits=WINOGRAD_MAX_SPLITS)
+    per_split = -(-chunks // splits)
+    return {"chunks": chunks, "splits": -(-chunks // per_split),
+            "per_split": per_split}
 
 
 def winograd_accum_bound(cin: int, *, variant: str, base_bits: int) -> int:
@@ -291,11 +323,17 @@ def conv2d_winograd_raw(x, uh, ul, s_tile, wscale4, bias=None, *,
     if out.numel() == 0:
         return out
     lib = build.library(NAME, _ARGTYPES)
+    karatsuba = int(variant == "karatsuba")
+    plan = winograd_plan(n * th * tw, cin, cout, sms=build.num_sms(dev))
+    nbytes = lib.winograd_scratch(cin, cout, karatsuba, n * th * tw,
+                                  plan["splits"])
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     code = lib.winograd_launch(
         xc.data_ptr(), uhc.data_ptr(), ulc.data_ptr(), st.data_ptr(),
-        ws4.data_ptr(), build.ptr(bs), out.data_ptr(), n, h, w, cin, cout,
-        pads[0], pads[1], th, tw, ho, wo, kom_qmax(base_bits), base_bits,
-        int(variant == "karatsuba"), build.stream_ptr(xc))
+        ws4.data_ptr(), build.ptr(bs), out.data_ptr(), scratch.data_ptr(),
+        nbytes, n, h, w, cin, cout, pads[0], pads[1], th, tw, ho, wo,
+        kom_qmax(base_bits), base_bits, karatsuba, plan["splits"],
+        plan["per_split"], build.stream_ptr(xc))
     build.check_launch(lib, code, NAME)
     build.LAUNCHES[NAME] += 1
     return out

@@ -331,13 +331,11 @@ def test_implicit_conv_alexnet_conv2_equals_plain(dev, variant, base_bits,
 
 @pytest.mark.cuda
 def test_integer_kernels_issue_int8_mma(dev):
-    """The limb GEMM and the integer implicit conv run their passes as
-    int8 MMAs (IMMA in the SASS); the systolic and Winograd convs still
-    run theirs on the CUDA cores."""
-    for name in ("kom_matmul", "implicit_conv"):
+    """All four integer libraries -- the limb GEMM, the implicit, systolic
+    and Winograd convs -- run their passes as int8 MMAs (IMMA in the
+    SASS)."""
+    for name in ("kom_matmul", "implicit_conv", "systolic_conv", "winograd"):
         assert build.sass_count(name, "IMMA") > 0, name
-    for name in ("systolic_conv", "winograd"):
-        assert build.sass_count(name, "IMMA") == 0, name
 
 
 @pytest.mark.cuda
@@ -408,6 +406,90 @@ def test_systolic_conv_equals_plain(dev, variant, base_bits, h, cin, cout,
         x, w, stride=s, padding=pad, variant=variant, bias=bias,
         activation="relu"))
     assert build.launch_counts() == {"systolic_conv": 1}
+
+
+def _systolic_raw_case(dev, g, n, h, cin, k, cout, stride, padding,
+                       base_bits):
+    """The raw wrapper's operands: per-sample int16 values, an int16
+    weight, the (n, cout) scale and a bias."""
+    from repro_torch.kernels.conv2d.conv2d import conv2d_systolic_raw
+    qmax = sub.kom_qmax(base_bits)
+    xq = torch.randint(-qmax, qmax + 1, (n, h, h, cin), generator=g).to(
+        torch.int16).to(dev)
+    wq = torch.randint(-qmax, qmax + 1, (k, k, cin, cout), generator=g).to(
+        torch.int16).to(dev)
+    scale = (torch.rand((n, cout), generator=g) * 1e-4).to(dev)
+    bias = torch.randn(cout, generator=g).to(dev)
+    ho, wo, pads = sub.conv_pads(h, h, k, k, stride, padding)
+    return lambda v: conv2d_systolic_raw(
+        xq, wq, scale, bias, stride=stride, pads=(pads[0][0], pads[1][0]),
+        out_hw=(ho, wo), variant=v, base_bits=base_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+@pytest.mark.parametrize("n,h,cin,k,cout,s,pad", [
+    (1, 14, 512, 3, 512, 1, "SAME"),   # VGG16 conv5 alone: K split
+    (8, 14, 512, 3, 512, 1, "SAME"),   # ... at batch 8: five splits
+    (8, 30, 3, 3, 64, 1, "SAME"),      # the stem: flat K, 128 x 64 tiles
+    (8, 56, 64, 3, 64, 1, "SAME"),     # 196 tiles: two splits
+    (8, 64, 64, 3, 64, 1, "SAME"),     # 256 tiles, whole waves: one split
+    (1, 17, 24, 3, 200, 2, "VALID"),   # stride 2, VALID, cout off 128
+    (2, 9, 37, 3, 130, 1, "SAME"),     # cin off 8: flat K, split
+])
+def test_systolic_conv_tiles_equal_plain(dev, variant, base_bits, n, h, cin,
+                                         k, cout, s, pad):
+    g = torch.Generator().manual_seed(n * h + cin + cout)
+    run = _systolic_raw_case(dev, g, n, h, cin, k, cout, s, pad, base_bits)
+    _same_as_plain(lambda: run(variant))
+    assert build.launch_counts() == {"systolic_conv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+def test_systolic_conv_is_the_same_from_run_to_run(dev, variant, base_bits):
+    """The split K steps add their int32 sums by atomics, in no fixed
+    order: integers, so the bits never change."""
+    g = torch.Generator().manual_seed(5)
+    run = _systolic_raw_case(dev, g, 2, 14, 256, 3, 256, 1, "SAME",
+                             base_bits)
+    first = run(variant)
+    for _ in range(3):
+        assert torch.equal(run(variant), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+@pytest.mark.parametrize("n,h,cin,cout,pad", [
+    (2, 9, 40, 70, "VALID"),    # odd tile grid: a ragged last row, column
+    (1, 11, 24, 16, "SAME"),    # odd map, ragged tiles; one chunk
+    (1, 6, 512, 64, "SAME"),    # cin 512: deep, within the int32 bound
+    (2, 13, 64, 384, "SAME"),   # cout 384: three column blocks
+])
+def test_winograd_shapes_equal_plain(dev, variant, base_bits, n, h, cin,
+                                     cout, pad):
+    g = torch.Generator().manual_seed(h * cin + cout)
+    x = torch.relu(torch.randn((n, h, h, cin), generator=g)).to(dev)
+    w = sub.quantize_weight(torch.randn((3, 3, cin, cout), generator=g),
+                            base_bits=base_bits).to(dev)
+    bias = torch.randn(cout, generator=g).to(dev)
+    _same_as_plain(lambda: ops.conv2d_winograd(
+        x, w, padding=pad, variant=variant, bias=bias))
+    assert build.launch_counts() == {"winograd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,base_bits", SPECS)
+def test_winograd_is_the_same_from_run_to_run(dev, variant, base_bits):
+    """Four chunk splits add their int32 sums by atomics, in no fixed
+    order: integers, so the bits never change."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.relu(torch.randn((4, 13, 13, 128), generator=g)).to(dev)
+    w = sub.quantize_weight(torch.randn((3, 3, 128, 256), generator=g),
+                            base_bits=base_bits).to(dev)
+    first = ops.conv2d_winograd(x, w, variant=variant)
+    for _ in range(3):
+        assert torch.equal(ops.conv2d_winograd(x, w, variant=variant), first)
 
 
 @pytest.mark.cuda

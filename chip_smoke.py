@@ -85,8 +85,9 @@ Phases, each fatal on failure:
    holds the schedule itself;
 10. count the tensor-core instructions (``HGMMA``, ``HMMA``) in the
     flash-attention library's SASS (``cuobjdump -sass``; the bf16 kernel
-    must issue wgmma), then hold the flash-attention kernel against its
-    plain version on the card at one full-width granite-3-2b prefill layer
+    must issue wgmma, the f32 kernel TF32 ``mma.sync``), then hold the
+    flash-attention kernel against its plain version on the card at one
+    full-width granite-3-2b prefill layer
     (b 4, hq 32, hkv 8, sq = skv = 2048, dh 64, causal), at sq 256 with
     q_offset 1792 and with window 512, each in f32 and bf16, and at sq =
     skv = 1000 (padded); the flash-decode kernel at b 8, hq 32, hkv 8, S
@@ -100,14 +101,15 @@ Phases, each fatal on failure:
     ``F.scaled_dot_product_attention`` with the same mask (a yardstick the
     port never calls; decode and SDPA also replayed from a CUDA graph,
     device time alone, the JSON row's time) and the ``analysis/roofline``
-    bound (bf16 inputs at the bf16 peak); then the decode op's own run (its
-    entry point, no model calls it);
+    bound (bf16 inputs at the bf16 peak; f32 ones at the f32 CUDA-core
+    peak, with the floor of three TF32 passes beside it); then the decode
+    op's own run (its entry point, no model calls it);
 11. full-width granite-3-2b (40 layers, random weights, seed 0): the
     prefill step (``make_prefill_step``, ``use_flash_kernel=True``) on 4 x
     2048 tokens under ``native_bf16`` -- 40 flash-attention launches per
     forward, prefill tokens/s, a profile -- and under ``fp32`` (TF32 off)
     the logits within PREFILL_TOL_FP32 of the same forward inside
-    ``build.plain_versions()``;
+    ``build.plain_versions()``, then timed (prefill tokens/s);
 12. the limb GEMM at granite-3-2b's eight decode shapes at m = 1, 4 and
     16, exact against its plain version, with the K split its plan chose,
     eager and CUDA-graph device times, and the per-serve_step totals;
@@ -120,7 +122,9 @@ Phases, each fatal on failure:
 13. reduced granite-3-2b (flash kernel on) under ``fp32`` and
     ``kom_int14``: the forward and four decode steps on the card within
     REDUCED_TOL_FP32 / REDUCED_TOL_KOM of the CPU plain versions;
-14. hold the chunkwise-mLSTM kernel against its plain version (the
+14. count the TF32 ``mma.sync`` instructions (``HMMA``) in the mLSTM
+    library's SASS (there must be some), then hold the chunkwise-mLSTM
+    kernels against their plain version (the
     model's chunk loop, f32) at one full-width xlstm-125m layer (b 4, h 4,
     s 2048, dh 384, chunk 64) in f32 and bf16, at s 2000 (padded) and 17
     (< chunk), with strong forget gates (log_f ~ -5), with zero input-gate
@@ -128,8 +132,10 @@ Phases, each fatal on failure:
     within MLSTM_TOL of max |plain|, the two mutant plain versions (the
     causal mask without its diagonal, the state written without the input
     gate) required to miss it; timed beside the ``analysis/roofline``
-    bound (no PyTorch call computes the chunkwise mLSTM); then the op's
-    own run (its entry point, no model calls it, as in the reference);
+    bound (f32 CUDA-core peak) and the floor of three TF32 passes (no
+    PyTorch call computes the chunkwise mLSTM); then the op's own run (its
+    entry point, no model calls it, as in the reference: one counted
+    launch, the state walk and the outputs);
 15. full-width xlstm-125m (12 layers as 3 groups of (m, m, m, s), random
     weights, seed 0): the kernel on the first mLSTM layer's own q/k/v and
     gates from a 4 x 2048 prefill, within MLSTM_TOL of max |y| of that
@@ -1460,11 +1466,13 @@ def attention_case(torch, build, summary, label, q, k, v, *, causal=True,
                             causal=causal, window=window, q_offset=q_offset,
                             itemsize=q.element_size())
     b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], rf["kind"])
+    floor = (f" tf32x3_floor_ms={1e3 * rf['tf32x3_s']:.4f} "
+             f"({100e3 * rf['tf32x3_s'] / ms:.1f}%)" if f32 else "")
     log(f"[attention] flash_attention {label} {str(q.dtype)[6:]}: "
         f"max_abs_err={err} (tol {tol}) mutant_err={miss} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by}, {rf['kind']}, "
-        f"{100 * b_ms / ms:.1f}%)")
+        f"{100 * b_ms / ms:.1f}%){floor}")
     if not (err <= tol and torch.isfinite(got.float()).all()) or \
             (miss is not None and not miss > tol):
         raise SystemExit(f"flash_attention {label}: kernel vs plain "
@@ -1542,6 +1550,9 @@ def phase_compare_attention(torch) -> tuple:
         f"library's SASS (cuobjdump -sass): {tc}")
     if not tc["HGMMA"]:
         raise SystemExit("[attention] the bf16 kernel issues no wgmma")
+    if not tc["HMMA"]:
+        raise SystemExit("[attention] the f32 kernel issues no TF32 "
+                         "mma.sync")
     q, k, v = rnd(4, 32, 2048, 64), rnd(4, 8, 2048, 64), rnd(4, 8, 2048, 64)
     attention_case(torch, build, summary, "prefill 4x2048", q, k, v)
     attention_case(torch, build, summary, "prefill 4x2048",
@@ -1716,6 +1727,14 @@ def phase_prefill(torch, card: str, params) -> dict:
         f"max rel err {rel:.3e} (tol {PREFILL_TOL_FP32})")
     if not rel <= PREFILL_TOL_FP32:
         raise SystemExit(f"[prefill] fp32 logits off by {rel}")
+    del got, want
+    t0 = time.perf_counter()
+    for _ in range(n_it):
+        step32(params, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n_it
+    log(f"[prefill] granite-3-2b/fp32 flash on {card}: {1e3 * dt:.1f} ms "
+        f"per 4x2048 prefill, {4 * 2048 / dt:.0f} tokens/s")
     return launches
 
 
@@ -1954,7 +1973,7 @@ def mlstm_case(torch, build, summary, label, q, k, v, lf, ig, *,
     MLSTM_TOL of max |plain| (f32 and bf16 inputs), the two mutant plain
     versions required to miss it (f32, more than one chunk); timed beside
     the roofline bound (no PyTorch call computes the chunkwise mLSTM)."""
-    from repro_torch.analysis.roofline import mlstm_chunk_roofline
+    from repro_torch.analysis.roofline import H100, mlstm_chunk_roofline
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 
     run = lambda: mlstm_chunk(q, k, v, lf, ig, chunk=chunk)
@@ -1977,13 +1996,15 @@ def mlstm_case(torch, build, summary, label, q, k, v, lf, ig, *,
     rf = mlstm_chunk_roofline(b=b, h=h, s=sp, dh=dh, chunk=c,
                               itemsize=q.element_size())
     b_ms, b_by = bound_ms(rf["flops"], rf["bytes"], "fp32")
-    split_ms, _ = bound_ms(rf["flops_dv_split"], rf["bytes"], "fp32")
+    issued_ms = 1e3 * 3 * rf["flops_issued"] / H100["peak_tf32"]
     log(f"[mlstm] mlstm_chunk {label} {str(q.dtype)[6:]}: max_abs_err="
         f"{err} ({err / scale:.3e} of max|plain| {scale:.4g}, tol "
         f"{MLSTM_TOL}) mutants {['%.3e' % m for m in misses]} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
-        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%; with the "
-        f"dv split's recomputed scores {split_ms:.4f})")
+        f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / ms:.1f}%) "
+        f"tf32x3_floor_ms={1e3 * rf['tf32x3_s']:.4f} "
+        f"({100e3 * rf['tf32x3_s'] / ms:.1f}%; of what the kernels issue "
+        f"{issued_ms:.4f}) scratch_mb={rf['scratch_bytes'] / 1e6:.1f}")
     if not (err <= MLSTM_TOL * scale and torch.isfinite(got).all()) or \
             not all(m > MLSTM_TOL for m in misses):
         raise SystemExit(f"mlstm_chunk {label}: kernel vs plain {err} "
@@ -2001,6 +2022,11 @@ def phase_compare_mlstm(torch) -> tuple:
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 
     summary = {}
+    hmma = build.sass_count("mlstm_chunk", "HMMA")
+    log(f"[mlstm] TF32 mma.sync (HMMA) instructions in the mlstm_chunk "
+        f"library's SASS: {hmma}")
+    if not hmma:
+        raise SystemExit("[mlstm] the mLSTM kernels issue no TF32 mma.sync")
     x = mlstm_inputs(torch, 4, 4, 2048, 384, 0)
     mlstm_case(torch, build, summary, "layer 4x4x2048 dh384", *x, row=True)
     mlstm_case(torch, build, summary, "layer 4x4x2048 dh384",

@@ -5,8 +5,9 @@ the two attention kernels (:func:`attention_roofline`,
 (:func:`mlstm_chunk_roofline`).
 
 Priced with the H100 SXM's published dense peaks (NVIDIA data sheet):
-int8 tensor-core operations 1,979 TOP/s, bf16 989 TFLOP/s, f32 on the CUDA
-cores 67 TFLOP/s, HBM3 3.35 TB/s, all at the 700 W power limit.  No TPU
+int8 tensor-core operations 1,979 TOP/s, bf16 989 TFLOP/s, TF32 494.7
+TFLOP/s, f32 on the CUDA cores 67 TFLOP/s, HBM3 3.35 TB/s, all at the 700 W
+power limit.  No TPU
 constant is used here.  Each variant's passes are priced at the peak of
 the type they multiply (:func:`variant_peak`): the integer limb passes at
 the int8 rate, the bf16x3/bf16x6 limb passes and ``native_bf16``'s bf16
@@ -24,6 +25,7 @@ from typing import Dict
 H100 = {
     "peak_int8": 1979e12,   # int8 tensor-core operations per second
     "peak_bf16": 989e12,    # bf16 tensor-core FLOP per second
+    "peak_tf32": 494.7e12,  # TF32 tensor-core FLOP per second
     "peak_fp32": 67e12,     # f32 FLOP per second on the CUDA cores
     "hbm_bw": 3.35e12,      # HBM3 bytes per second
 }
@@ -118,7 +120,9 @@ def attention_roofline(*, b, hq, hkv, sq, skv, dh, causal=True, window=None,
     compute_s: ``4*b*hq*sq*skv*dh`` FLOPs (QK^T and PV) times the unmasked
     share of the (sq, skv) pairs, at the peak of the inputs' type
     (``kind``, :func:`input_kind`).  memory_s: q, k, v read once and o
-    written once, at the HBM rate.
+    written once, at the HBM rate.  tf32x3_s: the same FLOPs as three TF32
+    passes at the TF32 peak, the floor of the f32 kernel's products
+    (``csrc/tf32x3.cuh``), beside the bound, not in it.
     """
     share = _live_pairs(sq, skv, causal=causal, window=window,
                         q_offset=q_offset) / float(sq * skv)
@@ -129,7 +133,8 @@ def attention_roofline(*, b, hq, hkv, sq, skv, dh, causal=True, window=None,
     memory_s = nbytes / H100["hbm_bw"]
     return {"flops": flops, "bytes": nbytes, "live_share": share,
             "kind": kind, "compute_s": compute_s, "memory_s": memory_s,
-            "roofline_s": max(compute_s, memory_s)}
+            "roofline_s": max(compute_s, memory_s),
+            "tf32x3_s": 3.0 * flops / H100["peak_tf32"]}
 
 
 def decode_attention_roofline(*, b, hq, hkv, S, dh, pos,
@@ -149,32 +154,41 @@ def decode_attention_roofline(*, b, hq, hkv, S, dh, pos,
 
 
 def mlstm_chunk_roofline(*, b, h, s, dh, chunk, itemsize=4,
-                         dv_tile: int = 64) -> Dict[str, float]:
+                         tile: int = 64) -> Dict[str, float]:
     """H100 floor of one chunkwise-mLSTM call on ``s`` (padded) tokens
     (seconds).
 
     ``flops``: what the function needs, per (b, h, chunk of C): the causal
     scores ``2 * C(C+1)/2 * dh`` and y_intra the same, y_inter and the
     state update ``2*C*dh*dh`` each, the normalizer's ``q . n`` and ``k^T
-    w`` ``2*C*dh`` each; at the f32 CUDA-core peak (the kernel's math is
-    f32 for bf16 inputs too).  ``flops_dv_split``: what the CUDA kernel
-    issues, the full (C x C) score tile and the normalizer recomputed by
-    each of its ``ceil(dh / dv_tile)`` dv tiles.  memory_s: q, k, v read
-    once (``itemsize``), the two f32 gates read once and the f32 y written
-    once, at the HBM rate.  The bound is from ``flops``.
+    w`` ``2*C*dh`` each; at the f32 CUDA-core peak (the math is f32 for
+    bf16 inputs too).  ``tf32x3_s``: those FLOPs as three TF32 passes at
+    the TF32 peak, the floor of the CUDA kernels' products
+    (``csrc/tf32x3.cuh``), beside the bound, not in it.  ``flops_issued``:
+    what the two CUDA kernels issue -- the state walk's update and ``k^T
+    w`` for chunks 0 .. nc-2; per chunk the full (C x C) score tile and
+    ``q . n`` in each of the ``ceil(dh / tile)`` dv tiles, y_intra, and
+    y_inter and ``q . n`` only past chunk 0 (which starts from zero).
+    ``scratch_bytes``: the nc - 1 chunk-start states and normalizers (f32)
+    that the walk writes once and the outputs read once.  memory_s: q, k,
+    v read once (``itemsize``), the two f32 gates read once and the f32 y
+    written once, at the HBM rate.  The bound is from ``flops``.
     """
     c = chunk
-    nb = b * h * (s // c)
-    tiles = -(-dh // dv_tile)
+    nc = s // c
+    tiles = -(-dh // tile)
     live = c * (c + 1) / 2.0
     inter = 2.0 * 2 * c * dh * dh          # y_inter + the state update
     norm = 2.0 * 2 * c * dh                # q . n and k^T w
-    flops = nb * (2.0 * 2 * live * dh + inter + norm)
-    flops_split = nb * (tiles * 2.0 * c * c * dh + 2.0 * c * c * dh + inter
-                        + tiles * norm)
+    flops = b * h * nc * (2.0 * 2 * live * dh + inter + norm)
+    issued = b * h * (nc * (tiles + 1) * 2.0 * c * c * dh
+                      + (nc - 1) * (2.0 * 2 * c * dh * dh
+                                    + (tiles + 1) * 2.0 * c * dh))
     nbytes = float(b * h * s * (3 * dh * itemsize + 2 * 4 + 4 * dh))
     compute_s = flops / H100["peak_fp32"]
     memory_s = nbytes / H100["hbm_bw"]
-    return {"flops": flops, "flops_dv_split": flops_split, "bytes": nbytes,
+    return {"flops": flops, "flops_issued": issued, "bytes": nbytes,
+            "scratch_bytes": 4.0 * b * h * (nc - 1) * (dh * dh + dh),
             "compute_s": compute_s, "memory_s": memory_s,
-            "roofline_s": max(compute_s, memory_s)}
+            "roofline_s": max(compute_s, memory_s),
+            "tf32x3_s": 3.0 * flops / H100["peak_tf32"]}

@@ -1,13 +1,13 @@
 // Flash attention on Hopper: online-softmax attention with GQA, causal and
 // sliding-window masks and a q_offset, the output in q's dtype.  Two kernels,
-// chosen by dtype alone in flash_attention_launch: f32 inputs run the f32
-// kernel on the CUDA cores, bf16 inputs the tensor-core kernel.
+// chosen by dtype alone in flash_attention_launch: f32 inputs run three TF32
+// passes on mma.sync, bf16 inputs bf16 wgmma; both on the tensor cores.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:_attn_kernel
 // (flash_attention_raw), whose grid (b, hq, sq/bq, skv/bk) ran the KV axis in
 // order and carried the running max m, denominator l and the (bq, d)
 // accumulator in VMEM scratch.  Blocks on the card run in no order, so here
-// one thread block owns (batch, q-head, 128-row q block) and walks the KV
+// one thread block owns (batch, q-head, block of q rows) and walks the KV
 // blocks itself, keeping m, l and the accumulator in registers.  GQA is by
 // index: q-head h reads kv-head h / group; no repeated K/V exists.
 //
@@ -19,19 +19,26 @@
 // with a live key, a wholly masked tile adds nothing after the first live
 // one and is wiped (alpha = 0) before it, so skipping it is exact; a row
 // with no live key averages every value in the reference, so a tile with
-// such a row walks every KV tile.  expf (never __expf); -fmad=false is on
-// and every multiply-add is an explicit __fmaf_rn.
+// such a row walks every KV tile.  expf (never __expf); -fmad=false is on,
+// so outside the MMAs every product and sum is rounded on its own.
 //
 // The f32 kernel.  At the prefill shapes (sq = skv = 2048, d = 64) the work
 // is 4*sq*skv*d FLOPs per head, half of it masked, ~96 FLOPs per byte of
-// q/k/v/o: bound by the f32 multiply-adds, which only the CUDA cores do in
-// full f32 (its 2e-5 limit rules out bf16 products).  The q tile stays in
-// shared memory for the whole walk, K/V tiles of 32 keys are staged once
-// per block, and each thread keeps a 4-row x 4-key score tile and a 4-row x
-// d/8 output tile in registers (8-10 multiply-adds per shared-memory load,
-// float4 loads, padded K rows for conflict-free reads).  Blocks skip the KV
-// tiles outside the live key range of their rows (the causal half), and the
-// heaviest q blocks launch first.
+// q/k/v/o: bound by the multiply-adds.  The 2e-5 limit rules out bf16 and
+// one-pass TF32 products, but not three TF32 passes (csrc/tf32x3.cuh:
+// each f32 operand split into a big and a small tf32 part, ~2^-22 of a
+// product left out), which run on the tensor cores at ~2.5x the CUDA
+// cores' f32 rate.  Both products are mma.sync m16n8k8 TF32 steps, each
+// 8-deep step formed from zero and added to an f32 partial with __fadd_rn
+// (an MMA's own sum is not round-to-nearest).  Eight warps of 16 q rows
+// each (four at d = 128); the q tile is split once into shared memory; K/V
+// tiles of 64 keys (32 at d = 128) come through a 2-stage cp.async ring and
+// are split once per block as they land, while the next tile's copy is in
+// flight.  S stays in registers; its C fragment is P's A fragment (the
+// permuted K order of tf32x3.cuh), so P never leaves registers.  Blocks
+// skip the KV tiles outside the live key range of their rows (the causal
+// half), warps the tiles outside theirs, and the heaviest q blocks launch
+// first.
 //
 // The bf16 kernel.  With bf16 inputs the same work is priced at the bf16
 // tensor-core rate (989 TFLOP/s, ~15x the f32 CUDA-core rate), so it runs
@@ -55,25 +62,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BQ = 128;       // q rows per block
-constexpr int BKV = 32;       // keys per KV tile
-constexpr int THREADS = 256;  // 32 row groups x 8 lanes
-constexpr int RPT = 4;        // rows per thread: 4*ty .. 4*ty+3
-constexpr int KPT = BKV / 8;  // keys per thread: tx + 8*j
-constexpr int PS = BKV + 4;   // padded row of the P tile
 constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
 
 // The KV tiles of bkv keys that q rows q0..q0+bq-1 walk, [begin, end): the
 // union of the rows' live key ranges, or every tile when one row has no
@@ -100,229 +93,6 @@ __device__ __forceinline__ void kv_tiles(int q0, int bq, int sq, int skv,
   begin = any_empty ? 0 : (int)(lo_all / bkv);
   end = any_empty ? n_kt : (int)(hi_all / bkv) + 1;
 }
-
-template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(BQ * DH + BKV * (DH + 4) + BKV * DH + BQ * PS);
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-    flash_attention_kernel(const T* __restrict__ Q, const T* __restrict__ K,
-                           const T* __restrict__ V, T* __restrict__ O, int hq,
-                           int hkv, int sq, int skv, int causal,
-                           int has_window, int window, int q_offset,
-                           float scale) {
-  constexpr int KS = DH + 4;                  // padded K row
-  constexpr int VEC = DH >= 32 ? 4 : DH / 8;  // output dims per chunk
-  constexpr int NV = DH / (8 * VEC);          // chunks per thread
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][DH]
-  float* sK = sQ + BQ * DH;                     // [BKV][KS]
-  float* sV = sK + BKV * KS;                    // [BKV][DH]
-  float* sP = sV + BKV * DH;                    // [BQ][PS]
-
-  const int n_qt = (sq + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;  // latest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
-  const T* qb = Q + ((size_t)(b * hq + h) * sq) * DH;
-  const T* kb = K + ((size_t)(b * hkv + hk) * skv) * DH;
-  const T* vb = V + ((size_t)(b * hkv + hk) * skv) * DH;
-
-  for (int idx = tid; idx < BQ * DH; idx += THREADS) {
-    const int r = idx / DH;
-    sQ[idx] = q0 + r < sq ? to_f32(qb[(size_t)q0 * DH + idx]) : 0.0f;
-  }
-
-  int kt_begin, kt_end;
-  kv_tiles(q0, BQ, sq, skv, causal, has_window, window, q_offset, BKV,
-           kt_begin, kt_end);
-
-  float m[RPT], l[RPT], acc[RPT][NV * VEC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NV * VEC; ++c) acc[i][c] = 0.0f;
-  }
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BKV;
-    __syncthreads();  // the previous tile's K/V/P reads are done
-    for (int idx = tid; idx < BKV * DH; idx += THREADS) {
-      const int j = idx / DH, d = idx % DH;
-      const bool ok = k0 + j < skv;
-      const size_t g = (size_t)k0 * DH + idx;
-      sK[j * KS + d] = ok ? to_f32(kb[g]) : 0.0f;
-      sV[idx] = ok ? to_f32(vb[g]) : 0.0f;
-    }
-    __syncthreads();
-
-    // Scores for rows 4*ty+i and keys tx+8*j.
-    float s[RPT][KPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[RPT], kv[KPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&sQ[(RPT * ty + i) * DH + d]);
-#pragma unroll
-      for (int j = 0; j < KPT; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 8 * j) * KS + d]);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < KPT; ++j) {
-          s[i][j] = __fmaf_rn(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = __fmaf_rn(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = __fmaf_rn(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = __fmaf_rn(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-    // Mask, online softmax; a row's 8 lanes are adjacent in one warp.
-    float alpha[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const long long p = (long long)q0 + RPT * ty + i + q_offset;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int kp = k0 + tx + 8 * j;
-        float v;
-        if (kp >= skv) {
-          v = -INFINITY;  // no such key
-        } else {
-          const bool live = (!causal || p >= kp) &&
-                            (!has_window || p - kp < (long long)window);
-          v = live ? __fmul_rn(s[i][j], scale) : NEG;
-        }
-        s[i][j] = v;
-        mx = fmaxf(mx, v);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float pj = expf(__fsub_rn(s[i][j], m_new));
-        sP[(RPT * ty + i) * PS + tx + 8 * j] = pj;
-        sum = __fadd_rn(sum, pj);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      alpha[i] = expf(__fsub_rn(m[i], m_new));
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), sum);
-      m[i] = m_new;
-    }
-    __syncwarp();  // a row's P entries come from its own warp
-
-    // acc = acc * alpha + P V for rows 4*ty+i, dims tx*VEC + 8*VEC*u + e.
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < NV * VEC; ++c)
-        acc[i][c] = __fmul_rn(acc[i][c], alpha[i]);
-#pragma unroll 2
-    for (int j = 0; j < BKV; j += 4) {
-      float4 pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&sP[(RPT * ty + i) * PS + j]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vv[NV * VEC];
-#pragma unroll
-        for (int u = 0; u < NV; ++u) {
-          const float* src = &sV[(j + jj) * DH + tx * VEC + 8 * VEC * u];
-          if constexpr (VEC == 4) {
-            const float4 t = *reinterpret_cast<const float4*>(src);
-            vv[4 * u] = t.x;
-            vv[4 * u + 1] = t.y;
-            vv[4 * u + 2] = t.z;
-            vv[4 * u + 3] = t.w;
-          } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) vv[VEC * u + e] = src[e];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float pij = comp(pv[i], jj);
-#pragma unroll
-          for (int c = 0; c < NV * VEC; ++c)
-            acc[i][c] = __fmaf_rn(pij, vv[c], acc[i][c]);
-        }
-      }
-    }
-  }
-
-  T* ob = O + ((size_t)(b * hq + h) * sq) * DH;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = q0 + RPT * ty + i;
-    if (r >= sq) continue;
-    const float den = l[i] == 0.0f ? 1.0f : l[i];
-#pragma unroll
-    for (int u = 0; u < NV; ++u)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        ob[(size_t)r * DH + tx * VEC + 8 * VEC * u + e] =
-            from_f32<T>(__fdiv_rn(acc[i][VEC * u + e], den));
-  }
-}
-
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int skv, int causal, int has_window,
-           int window, int q_offset, float scale, cudaStream_t st) {
-  constexpr size_t bytes = smem_bytes<DH>();
-  auto kern = flash_attention_kernel<T, DH>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  kern<<<grid, THREADS, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, skv, causal,
-      has_window, window, q_offset, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
-              int b, int hq, int hkv, int sq, int skv, int causal,
-              int has_window, int window, int q_offset, float scale,
-              cudaStream_t st) {
-  switch (dh) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, skv, causal,
-                           has_window, window, q_offset, scale, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, skv, causal,
-                           has_window, window, q_offset, scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, causal,
-                           has_window, window, q_offset, scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, causal,
-                            has_window, window, q_offset, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // The bf16 tensor-core kernel (see the note at the top).
@@ -782,7 +552,337 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The f32 kernel: three TF32 passes on mma.sync (see the note at the top).
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+template <int DH>
+struct Cfg {
+  static constexpr int BQ = DH == 128 ? 64 : 128;   // q rows per block
+  static constexpr int BKV = DH == 128 ? 32 : 64;   // keys per KV tile
+  static constexpr int WARPS = BQ / 16;             // 16 q rows per warp
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int STAGES = 2;                  // raw K/V ring
+  static constexpr int LDQ = DH / 2 + 4;  // quads per Q or K row, == 4 mod 8
+  static constexpr int LDV = DH + 2;      // quads per V pair row, == 2 mod 8
+  static constexpr int RAW = BKV * DH;    // floats of one raw K or V tile
+  static constexpr size_t smem =
+      16 * (size_t)(BQ * LDQ + BKV * LDQ + BKV / 2 * LDV) +
+      4 * (size_t)(STAGES * 2 * RAW);
+};
+
+// Warp w owns q rows 16w .. 16w + 15 of the block; lane = 4g + t holds rows
+// 16w + g and 16w + g + 8 of every C fragment (columns 2t, 2t + 1 of each
+// 8-column n-tile).
+template <int DH>
+__global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
+    flash_attention_f32_kernel(const float* __restrict__ Q,
+                               const float* __restrict__ K,
+                               const float* __restrict__ V,
+                               float* __restrict__ O, int hq, int hkv,
+                               int sq, int skv, int causal, int has_window,
+                               int window, int q_offset, float scale) {
+  using C = Cfg<DH>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, LDQ = C::LDQ, LDV = C::LDV;
+  constexpr int PV_N = DH / 8 < 8 ? DH / 8 : 8;  // P V chains in flight
+  extern __shared__ __align__(16) uint4 smem_q[];
+  uint4* sQ = smem_q;            // [BQ][LDQ] pair quads along d
+  uint4* sK = sQ + BQ * LDQ;     // [BKV][LDQ] pair quads along d
+  uint4* sV = sK + BKV * LDQ;    // [BKV / 2][LDV] key-pair quads
+  float* raw = reinterpret_cast<float*>(sV + BKV / 2 * LDV);  // the ring
+
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;  // latest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const float* qb = Q + ((size_t)(b * hq + h) * sq) * DH;
+  const float* kb = K + ((size_t)(b * hkv + hk) * skv) * DH;
+  const float* vb = V + ((size_t)(b * hkv + hk) * skv) * DH;
+
+  int kt_begin, kt_end;
+  kv_tiles(q0, BQ, sq, skv, causal, has_window, window, q_offset, BKV,
+           kt_begin, kt_end);
+  // Tile kt's raw K and V land in stage (kt - kt_begin) % STAGES; each load
+  // is one cp.async group.
+  auto load_kv = [&](int kt) {
+    if (kt < kt_end) {
+      const int k0 = kt * BKV;
+      float* rk = raw + (kt - kt_begin) % C::STAGES * 2 * C::RAW;
+      float* rv = rk + C::RAW;
+      for (int idx = tid; idx < BKV * DH / 4; idx += C::THREADS) {
+        const int row = idx / (DH / 4), c = idx % (DH / 4);
+        const bool ok = k0 + row < skv;
+        const size_t src = ok ? (size_t)(k0 + row) * DH + 4 * c : 0;
+        tc::cp_async16(rk + row * DH + 4 * c, kb + src, ok);
+        tc::cp_async16(rv + row * DH + 4 * c, vb + src, ok);
+      }
+    }
+    tc::cp_async_commit();  // an empty group past the end keeps the count
+  };
+  load_kv(kt_begin);
+  for (int idx = tid; idx < BQ * DH / 2; idx += C::THREADS) {
+    const int r = idx / (DH / 2), p = idx % (DH / 2);
+    float2 x = make_float2(0.0f, 0.0f);
+    if (q0 + r < sq)
+      x = *reinterpret_cast<const float2*>(qb + (size_t)(q0 + r) * DH + 2 * p);
+    sQ[r * LDQ + p] = tf32x3::pair_quad(x.x, x.y);
+  }
+
+  const int row0 = 16 * w + g;  // and row0 + 8
+  // Each of the thread's two rows: its live keys lo..hi (hi < lo: none),
+  // clamped to [-1, skv] so that the per-key tests are 32-bit.
+  int live_lo[2], live_hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long p = (long long)q0 + row0 + 8 * r + q_offset;
+    const long long hi = causal ? (p < skv - 1 ? p : skv - 1) : skv - 1;
+    const long long lo = has_window ? p - window + 1 : 0;
+    live_hi[r] = (int)(hi < -1 ? -1 : hi);
+    live_lo[r] = (int)(lo < 0 ? 0 : lo > skv ? skv : lo);
+  }
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BKV;
+    const float* rk = raw + (kt - kt_begin) % C::STAGES * 2 * C::RAW;
+    const float* rv = rk + C::RAW;
+    tc::cp_async_wait<0>();  // this thread's copies of tile kt landed
+    __syncthreads();  // everyone's have; everyone is done with tile kt - 1
+    load_kv(kt + 1);  // into tile kt - 1's stage, converted already
+    for (int idx = tid; idx < BKV * DH / 2; idx += C::THREADS) {
+      const int j = idx / (DH / 2), p = idx % (DH / 2);
+      const float2 x = *reinterpret_cast<const float2*>(rk + j * DH + 2 * p);
+      sK[j * LDQ + p] = tf32x3::pair_quad(x.x, x.y);
+    }
+    for (int idx = tid; idx < BKV / 2 * DH; idx += C::THREADS) {
+      const int r = idx / DH, d = idx % DH;
+      sV[r * LDV + d] =
+          tf32x3::pair_quad(rv[2 * r * DH + d], rv[(2 * r + 1) * DH + d]);
+    }
+    __syncthreads();
+
+    // A tile outside the live keys of all 16 rows of the warp, every one of
+    // which has a live key, changes nothing (see the note at the top).
+    bool dead = true;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      dead = dead && live_lo[r] <= live_hi[r] &&
+             (k0 > live_hi[r] || k0 + BKV - 1 < live_lo[r]);
+    if (__all_sync(0xffffffffu, dead)) continue;
+
+    // S = Q K^T: per 8-deep step of d, three passes from zero, folded.
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll 1
+    for (int ks = 0; ks < DH / 8; ++ks) {
+      const tf32x3::FragA a = tf32x3::load_a(sQ + 16 * w * LDQ + 4 * ks, LDQ,
+                                             g, t);
+      uint4 bq[BKV / 8];
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+        bq[j] = sK[(8 * j + g) * LDQ + 4 * ks + t];
+      float d[BKV / 8][4];
+      tf32x3::steps(d, a, bq);
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) tf32x3::fold(s[j], d[j]);
+    }
+
+    // Mask, online softmax (a row's 4 threads are adjacent lanes).  A tile
+    // wholly inside both rows' live keys (most tiles) needs no test.
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (k0 >= live_lo[0] && k0 >= live_lo[1] && k0 + BKV - 1 <= live_hi[0] &&
+        k0 + BKV - 1 <= live_hi[1]) {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = __fmul_rn(s[j][e], scale);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
+          const float v =
+              kp >= skv ? -INFINITY  // no such key
+              : kp >= live_lo[r] && kp <= live_hi[r]
+                  ? __fmul_rn(s[j][e], scale)
+                  : NEG;
+          s[j][e] = v;
+          mx[r] = fmaxf(mx[r], v);
+        }
+    }
+    float m_new[2], sum[2] = {0.0f, 0.0f}, alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m[r], mx[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(__fsub_rn(s[j][e], m_new[e >> 1]));  // p
+        sum[e >> 1] = __fadd_rn(sum[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
+      alpha[r] = expf(__fsub_rn(m[r], m_new[r]));
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), sum[r]);
+      m[r] = m_new[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][e] = __fmul_rn(acc[i][e], alpha[e >> 1]);
+
+    // acc += P V: per 8 keys (S's n-tile j, already P's A fragment), three
+    // passes from zero, folded.
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      const tf32x3::FragA a = tf32x3::frag_from_c(s[j]);
+#pragma unroll
+      for (int i0 = 0; i0 < DH / 8; i0 += PV_N) {
+        uint4 bq[PV_N];
+#pragma unroll
+        for (int i = 0; i < PV_N; ++i)
+          bq[i] = sV[(4 * j + t) * LDV + 8 * (i0 + i) + g];
+        float d[PV_N][4];
+        tf32x3::steps(d, a, bq);
+#pragma unroll
+        for (int i = 0; i < PV_N; ++i) tf32x3::fold(acc[i0 + i], d[i]);
+      }
+    }
+  }
+
+  float* ob = O + ((size_t)(b * hq + h) * sq) * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    if (row >= sq) continue;
+    const float den = l[r] == 0.0f ? 1.0f : l[r];
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(ob + (size_t)row * DH + 8 * i + 2 * t) =
+          make_float2(__fdiv_rn(acc[i][2 * r], den),
+                      __fdiv_rn(acc[i][2 * r + 1], den));
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int hq, int hkv, int sq, int skv, int causal, int has_window,
+           int window, int q_offset, float scale, cudaStream_t st) {
+  using C = Cfg<DH>;
+  auto kern = flash_attention_f32_kernel<DH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((sq + C::BQ - 1) / C::BQ, hq, b);
+  kern<<<grid, C::THREADS, C::smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, skv,
+      causal, has_window, window, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
+              int b, int hq, int hkv, int sq, int skv, int causal,
+              int has_window, int window, int q_offset, float scale,
+              cudaStream_t st) {
+  switch (dh) {
+    case 16:
+      return launch<16>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                        window, q_offset, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                        window, q_offset, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                        window, q_offset, scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                         window, q_offset, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace f32
+
+// Probes of the three-pass arithmetic (repro_torch/analysis/tf32_probe.py):
+// the split as the kernels split each value, and the rate of TF32 mma.sync
+// with `CH` independent accumulator chains per warp.
+__global__ void tf32_split_probe_kernel(const float* __restrict__ x,
+                                        uint32_t* __restrict__ big,
+                                        uint32_t* __restrict__ small, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    big[i] = tf32x3::to_tf32(x[i]);
+    small[i] = tf32x3::to_tf32(__fsub_rn(x[i], __uint_as_float(big[i])));
+  }
+}
+
+template <int CH>
+__global__ void tf32_mma_rate_kernel(float* __restrict__ out, int iters) {
+  float d[CH][4];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) d[c][0] = d[c][1] = d[c][2] = d[c][3] = 0.0f;
+  const uint32_t a[4] = {threadIdx.x, 2u, 3u, 4u};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) tf32x3::mma(d[c], a, (uint32_t)(i + c), 7u);
+  float sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    sum = __fadd_rn(sum, __fadd_rn(__fadd_rn(d[c][0], d[c][1]),
+                                   __fadd_rn(d[c][2], d[c][3])));
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
 }  // namespace
+
+extern "C" int tf32_split_probe_launch(const void* x, void* big, void* small,
+                                       int n, void* stream) {
+  if (n > 0)
+    tf32_split_probe_kernel<<<(n + 255) / 256, 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<uint32_t*>(big),
+        static_cast<uint32_t*>(small), n);
+  return (int)cudaGetLastError();
+}
+
+// `blocks` blocks of `threads` threads, each warp running `iters` rounds of
+// `chains` (4 or 8) independent m16n8k8 TF32 MMAs.
+extern "C" int tf32_mma_rate_launch(void* out, int blocks, int threads,
+                                    int iters, int chains, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (chains == 4)
+    tf32_mma_rate_kernel<4><<<blocks, threads, 0, st>>>(o, iters);
+  else if (chains == 8)
+    tf32_mma_rate_kernel<8><<<blocks, threads, 0, st>>>(o, iters);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -790,7 +890,7 @@ extern "C" const char* kernel_error_string(int code) {
 
 // q (b, hq, sq, dh), k/v (b, hkv, skv, dh) -- skv is the padded key count --
 // and o (b, hq, sq, dh), all contiguous, f32 (bf16 = 0: the f32 kernel) or
-// bf16 (bf16 = 1: the tensor-core kernel).  Returns cudaGetLastError() after
+// bf16 (bf16 = 1: the wgmma kernel).  Returns cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int hq,
@@ -802,6 +902,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (bf16)
     return tc::launch_dh(dh, q, k, v, o, b, hq, hkv, sq, skv, causal,
                          has_window, window, q_offset, scale, st);
-  return launch_dh<float>(dh, q, k, v, o, b, hq, hkv, sq, skv, causal,
-                          has_window, window, q_offset, scale, st);
+  return f32::launch_dh(dh, q, k, v, o, b, hq, hkv, sq, skv, causal,
+                        has_window, window, q_offset, scale, st);
 }

@@ -56,7 +56,7 @@ SOURCES = {
     "mlstm_chunk": "mlstm_chunk.cu",
 }
 HEADERS = ("limb_tile.cuh", "limb_mma.cuh", "conv_mma.cuh",
-           "float_tile.cuh")
+           "float_tile.cuh", "tf32x3.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -143,7 +143,7 @@ def sass_count(name: str, pattern: str) -> int:
     """SASS instructions of the built library ``name`` (``cuobjdump -sass``,
     from the toolkit beside ``nvcc``) whose opcode matches ``pattern``: how
     a run shows which units a kernel uses (``HGMMA``: bf16 wgmma, ``HMMA``:
-    bf16 mma.sync, ``IMMA``: int8 mma.sync)."""
+    bf16 or TF32 mma.sync, ``IMMA``: int8 mma.sync)."""
     import re
     tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
     build([name])

@@ -6,8 +6,10 @@ Replaces the TPU kernel
 sliding-window masks and a ``q_offset``, f32 math, the output in q's
 dtype.  On the TPU its KV grid axis ran in order and carried the running
 max ``m``, denominator ``l`` and accumulator in VMEM scratch; on the card
-one thread block owns (batch, q-head, 128-row q block) and walks the KV
-blocks itself (``repro_torch/csrc/flash_attention.cu``).
+one thread block owns (batch, q-head, block of q rows) and walks the KV
+blocks itself (``repro_torch/csrc/flash_attention.cu``): f32 inputs as
+three TF32 passes on ``mma.sync`` (``csrc/tf32x3.cuh``), bf16 inputs on
+``wgmma``.
 
 Masked scores are ``-1e30``, not ``-inf``, as in the reference.  A KV block
 that is wholly masked for a row BEFORE its first live key gives that row
@@ -35,7 +37,12 @@ NAME = "flash_attention"
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 _ARGTYPES = {"flash_attention_launch": [ctypes.c_void_p] * 4
-             + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]}
+             + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
+             # the TF32 probes (repro_torch/analysis/tf32_probe.py)
+             "tf32_split_probe_launch": [ctypes.c_void_p] * 3
+             + [ctypes.c_int, ctypes.c_void_p],
+             "tf32_mma_rate_launch": [ctypes.c_void_p] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p]}
 
 
 def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,

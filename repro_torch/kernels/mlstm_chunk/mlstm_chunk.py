@@ -6,10 +6,13 @@ Replaces the TPU kernel
 tokens, a (dk x dv) state and a (dk) normalizer carried from chunk to
 chunk from zero, ``y / max(|n|, 1)``, f32 output.  On the TPU the chunk
 axis was a sequential grid axis with the whole (dh x dh) state in VMEM; on
-the card one thread block walks every chunk of one (batch, head) for one
-tile of dv columns, its slice of the state in shared memory
-(``repro_torch/csrc/mlstm_chunk.cu``, which says why).  The wrapper counts
-one launch per call.
+the card only the state's walk is sequential
+(``repro_torch/csrc/mlstm_chunk.cu``, which says why): one kernel walks the
+chunks per 64 x 64 tile of the state and writes each chunk's start state
+to a scratch the library sizes (``mlstm_chunk_scratch``), a second one
+forms every chunk's outputs at once.  Every product runs as three TF32
+passes on the tensor cores.  The wrapper counts one launch per call (two
+kernels; one when the sequence is a single chunk).
 
 :func:`mlstm_chunk_plain` is the model's own chunk loop
 (``models.ssm._mlstm_chunk_scan``) from a zero state at the same chunk, in
@@ -25,13 +28,15 @@ from repro_torch.kernels import build
 from repro_torch.models import ssm
 
 NAME = "mlstm_chunk"
-#: The largest chunk and head dim the kernel takes (its 64 x 64 thread
-#: tiles and its shared-memory state slice).
+#: The largest chunk and head dim the kernels take (their 64 x 64 tiles).
 MAX_CHUNK = 64
 MAX_DH = 512
 
-_ARGTYPES = {"mlstm_chunk_launch": [ctypes.c_void_p] * 6
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+_ARGTYPES = {
+    "mlstm_chunk_launch": [ctypes.c_void_p] * 7 + [ctypes.c_size_t]
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "mlstm_chunk_scratch": ([ctypes.c_int] * 5, ctypes.c_size_t),
+}
 
 
 def _check(q, k, v, log_f, i_gate, chunk):
@@ -66,8 +71,9 @@ def mlstm_chunk_raw(q, k, v, log_f, i_gate, *, chunk: int = 64
     """q/k/v (b, h, s, dh) f32 or bf16; log_f/i_gate (b, h, s) f32;
     ``s % chunk == 0`` -> y (b, h, s, dh) f32.
 
-    CUDA tensors run the kernel (chunk <= 64, dh <= 512; anything else
-    raises); CPU tensors run :func:`mlstm_chunk_plain`.
+    CUDA tensors run the kernels (chunk <= 64, dh <= 512; anything else
+    raises) with a scratch of ``b*h*(s/chunk - 1)*(dh*dh + dh)`` f32 for
+    the chunk-start states; CPU tensors run :func:`mlstm_chunk_plain`.
     """
     if not build.use_kernel(q):
         return mlstm_chunk_plain(q, k, v, log_f, i_gate, chunk=chunk)
@@ -90,10 +96,12 @@ def mlstm_chunk_raw(q, k, v, log_f, i_gate, *, chunk: int = 64
     if out.numel() == 0:
         return out
     lib = build.library(NAME, _ARGTYPES)
+    nbytes = lib.mlstm_chunk_scratch(b, h, s, dh, chunk)
+    scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
     code = lib.mlstm_chunk_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
-        i_gate.data_ptr(), out.data_ptr(), b, h, s, dh, chunk,
-        int(q.dtype == torch.bfloat16), build.stream_ptr(q))
+        i_gate.data_ptr(), out.data_ptr(), scratch.data_ptr(), nbytes, b, h,
+        s, dh, chunk, int(q.dtype == torch.bfloat16), build.stream_ptr(q))
     build.check_launch(lib, code, NAME)
     build.LAUNCHES[NAME] += 1
     return out

@@ -339,6 +339,30 @@ def test_integer_kernels_issue_int8_mma(dev):
 
 
 @pytest.mark.cuda
+def test_float_kernels_issue_tensor_core_mma(dev):
+    """The bf16 attention kernel runs wgmma (HGMMA); the f32 attention
+    kernel and the mLSTM kernels run three TF32 passes on mma.sync (HMMA),
+    as do the float conv's bf16 schedules."""
+    assert build.sass_count("flash_attention", "HGMMA") > 0
+    for name in ("flash_attention", "mlstm_chunk", "implicit_conv_float"):
+        assert build.sass_count(name, "HMMA") > 0, name
+
+
+@pytest.mark.cuda
+def test_tf32_split_on_card_matches_the_cpu_emulation(dev):
+    """The split the f32 attention and mLSTM kernels run (cvt.rna.tf32.f32,
+    low bits cleared) equals the emulation of tests/test_torch_tf32.py bit
+    for bit: ties, signs, subnormals and random bit patterns."""
+    from repro_torch.analysis.tf32_probe import (probe_values, split,
+                                                 split_on_card)
+    x = probe_values(20000, 0)
+    big, small = split_on_card(x)
+    want_big, want_small = split(x)
+    assert torch.equal(big.view(torch.int32), want_big.view(torch.int32))
+    assert torch.equal(small.view(torch.int32), want_small.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_bad_input_on_the_card(dev):
     a = torch.zeros((4, 8), dtype=torch.int16, device=dev)
     b = torch.zeros((8, 3), dtype=torch.int16, device=dev)
@@ -866,8 +890,9 @@ def test_reduced_lm_flash_forward_on_card_matches_cpu(dev, arch):
     assert err <= 1e-5, err
 
 
-# The chunkwise mLSTM kernel against its plain version (the model's chunk
-# loop, f32).  Both run f32 arithmetic with sums in other orders; the
+# The chunkwise mLSTM kernels against their plain version (the model's
+# chunk loop, f32); one counted launch per call (the state walk and the
+# outputs).  Both run f32 arithmetic with sums in other orders; the
 # plain version is the noisier of the two (on an H100 at 4 x 2048, dh 384
 # it lies ~9e-6 of max|y| from an f64 run, the kernel ~3e-6), so the
 # kernel is held to max|kernel - plain| <= MLSTM_TOL * max|plain|, which
@@ -923,6 +948,8 @@ def _mlstm_vs_plain(run, mutants=()):
     (2, 4, 300, 384, 64, {"strong": True}),   # decays past the clip
     (2, 2, 256, 96, 64, {"zero_ig": True}),   # a ragged dv tile, i = 0 rows
     (1, 1, 64, 512, 32, {}),                  # the largest dh
+    (1, 3, 416, 80, 32, {}),                  # 13 chunks, dh 64 + 16
+    (1, 4, 32768, 32, 64, {}),                # 512 chunks (prefill_32k)
 ])
 def test_mlstm_kernel_equals_plain(dev, b, h, s, dh, chunk, kw):
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk

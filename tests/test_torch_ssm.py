@@ -184,16 +184,20 @@ def test_raw_wrapper_checks_shapes():
 def test_roofline_counts():
     """Per (b, h, chunk) at C 64, dh 384: the causal scores and y_intra
     2*2080*384 each, y_inter and the state update 2*64*384^2 each, the
-    normalizer 2*2*64*384; the dv-split kernel issues the full score tile
-    and the normalizer in each of its 6 tiles."""
+    normalizer 2*2*64*384; the two CUDA kernels issue the full score tile
+    and q . n in each of their 6 dv tiles, and the state walk, y_inter and
+    the normalizers on 31 of the 32 chunks (chunk 0 starts from zero)."""
     rf = mlstm_chunk_roofline(b=4, h=4, s=2048, dh=384, chunk=64)
     per = 2 * 2 * 2080 * 384 + 2 * 2 * 64 * 384 ** 2 + 2 * 2 * 64 * 384
     assert rf["flops"] == 16 * 32 * per
-    split = (6 * 2 * 64 * 64 * 384 + 2 * 64 * 64 * 384
-             + 2 * 2 * 64 * 384 ** 2 + 6 * 2 * 2 * 64 * 384)
-    assert rf["flops_dv_split"] == 16 * 32 * split
+    issued = (32 * (6 * 2 * 64 * 64 * 384 + 2 * 64 * 64 * 384)
+              + 31 * (2 * 2 * 64 * 384 ** 2 + 6 * 2 * 64 * 384
+                      + 2 * 64 * 384))
+    assert rf["flops_issued"] == 16 * issued
+    assert rf["scratch_bytes"] == 16 * 31 * (384 ** 2 + 384) * 4
     assert rf["bytes"] == 4 * 4 * 2048 * (3 * 384 * 4 + 8 + 4 * 384)
     assert rf["roofline_s"] == rf["compute_s"] > rf["memory_s"]
+    assert rf["tf32x3_s"] == 3 * rf["flops"] / 494.7e12
 
 
 # -- the blocks against jax.jit of the reference --------------------------------

@@ -24,22 +24,41 @@ Phases, each fatal on failure:
    epilogue at VGG16's three convs between them, and at AlexNet's conv2
    (pooled) and conv3 (handoff) (batch 16), both policies; each variant
    summed over one VGG16 forward beside its bound;
-5. serve full-width AlexNet under ``kom_int14`` through ``CNNServeEngine``
-   on its default (heuristic) plan (buckets 1/4/16): warm up, then 32
-   requests; the launch counters, reset just before, must show 1
-   implicit-conv, 3 Winograd and 4 limb-GEMM launches per forward, the
-   logits must equal a forward through the plain versions on the card bit
-   for bit, and a reduced AlexNet forward on the card must equal the plain
+5. planning on the card: ``python -m repro_torch.core.planner --check``'s
+   ``check()`` on the committed ``repro_torch/tuned/plans/cuda.json`` (no
+   violation; the six plans -- alexnet, vgg16, vgg19 under both integer
+   policies -- every layer ``source="measured"``); the measured explorer
+   re-run over those six (batch 1, ``--requant``), each layer's wall,
+   engine, fusion and ``annotate_plan`` roofline fraction printed beside
+   the committed choice; the implicit engine's Cin-chunk (``bk``) sweep of
+   one VGG16 layer (28 x 28, 512 -> 512) under both policies;
+6. serve full-width AlexNet under ``kom_int14`` through ``CNNServeEngine``
+   on the plan it resolves (the committed measured plan; buckets 1/4/16):
+   warm up, then 32 requests; the launch counters, reset just before, must
+   show per forward the launches the plan implies (``plan_launches``: one
+   per conv on its engine and variant, one limb GEMM per FC), the logits
+   must equal a forward through the plain versions on the card bit for
+   bit, and a reduced AlexNet forward on the card must equal the plain
    version on the CPU (which the CPU tests hold against the JAX reference)
-   bit for bit;
-6. serve full-width VGG16 under ``kom_int14`` through the fused plan of
+   bit for bit; then the same 32 requests on fresh engines, heuristic
+   plan (the one AlexNet served before), heuristic, committed -- each
+   with its own launch counts; the heuristic plan's first 16 logits equal
+   its plain-version forward on the card bit for bit, and the committed
+   plan's bit for bit unless a systolic layer or a ``pool_quant`` handoff
+   quantizes with its own scales -- a profile of one heuristic step, and
+   images/s of each run beside the card's name and power limit;
+6b. serve full-width VGG16 under ``kom_int14`` through the fused plan of
    ``explore(cfg, model_only=True, requant=True)`` (buckets 1/4/8, 16
    requests): the plan must hold ``pool`` and ``pool_quant`` entries, the
    counters, reset just before, must show per forward 4 limb-GEMM, 5
    pooled, 4 handoff and 3 plain implicit-conv launches, the logits must
    equal the plain-version forward on the card bit for bit, and a reduced
    VGG16 forward under its fused plan on the card must equal the CPU plain
-   versions bit for bit;
+   versions bit for bit; then the same 16 requests on fresh engines,
+   committed measured plan, committed, fused (launches per
+   ``plan_launches``; the committed plan's first 8 logits equal to its
+   plain-version forward bit for bit), a profile of one committed step,
+   and images/s of each run beside the card's name and power limit;
 7. count the tensor-core instructions (``HGMMA``, ``HMMA``) in the float
    conv library's SASS (the bf16 schedules must issue ``mma.sync``) and run
    the one-MMA rounding probe (``analysis/mma_probe``: every output within
@@ -876,6 +895,158 @@ def phase_compare_systolic_float(torch) -> dict:
 # Phase 5: serve full-width AlexNet through the kernels.
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 5a: planning on the card -- the measured explorer, the bk sweep,
+# the committed artifact's check.
+# ---------------------------------------------------------------------------
+
+#: The committed artifact's plans: the reference's committed models and
+#: policies, each explored with --requant.
+PLAN_MODELS = ("alexnet", "vgg16", "vgg19")
+
+
+def plan_launches(cfg, plan, forwards: int) -> dict:
+    """The kernel launches ``forwards`` forwards of ``cfg`` make under
+    ``plan``: one per conv on the engine and variant the forward runs
+    (``analysis/traffic.model_traffic``'s walk, ``cnn_forward``'s rule: a
+    handoff consumer runs the implicit handoff variant, a pool fusion the
+    pooled one), plus one limb-GEMM launch per FC layer."""
+    from repro_torch.analysis.traffic import model_traffic
+
+    counts: dict = {}
+    for r in model_traffic(cfg, plan)["layers"]:
+        if r["path"] == "implicit":
+            name = ("implicit_conv_handoff" if r["handoff_in"] else
+                    "implicit_conv_pool"
+                    if r["fusion"] in ("pool", "pool_quant")
+                    else "implicit_conv")
+        else:
+            name = {"im2col": "kom_matmul", "winograd": "winograd",
+                    "systolic": "systolic_conv"}[r["path"]]
+        counts[name] = counts.get(name, 0) + forwards
+    n_fc = sum(1 for spec in cfg.layers if spec[0] == "fc")
+    counts["kom_matmul"] = counts.get("kom_matmul", 0) + n_fc * forwards
+    return counts
+
+
+def plan_ab(torch, cfg, params, imgs, buckets, card, runs, first=None,
+            profile_label=None) -> tuple:
+    """Serve ``imgs`` once per ``(label, plan)`` of ``runs`` (``None``: the
+    plan the engine resolves, the committed one), each on a fresh engine
+    with the counters reset just before (``serve_burst``) and its launches
+    held to ``plan_launches``; hold each label's first logits against a
+    forward of the same engine through the plain versions on the card, bit
+    for bit (``first``: an earlier, already checked run's (label, stats,
+    wall) whose rate to include); log each label's images/s; profile one
+    step of the ``profile_label`` engine.  Returns (launches, {label:
+    logits of its first run})."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.cnn_engine import CNNServeEngine
+
+    launches, logits, rates, checked = {}, {}, {}, set()
+    if first is not None:
+        label, st, wall = first
+        rates[label] = [(st["images_per_s"], len(imgs) / wall)]
+        checked.add(label)
+    x_check = torch.from_numpy(imgs[:max(buckets)]).cuda()
+    for label, plan in runs:
+        eng = CNNServeEngine(cfg, params, buckets=buckets, device="cuda",
+                             plan=plan)
+        tag = f"{cfg.name}-{label.split()[0]}"
+        out, counts, fwd, wall = serve_burst(torch, eng, imgs, tag)
+        check_launches(tag, counts, plan_launches(cfg, eng.plan, fwd))
+        if label not in checked:
+            checked.add(label)
+            log(f"[{tag}] {label} plan: " + ", ".join(
+                f"{e.key} {e.path}/{e.fusion}" for e in eng.plan.entries))
+            with build.plain_versions():
+                plain = eng.forward(x_check).cpu().numpy()
+            got = out[:len(x_check)]
+            if not np.array_equal(plain, got):
+                raise SystemExit(f"[{tag}] {label} plan: engine logits != "
+                                 "plain forward on the card (max diff "
+                                 f"{np.abs(plain - got).max()})")
+            log(f"[{tag}] {label} plan: engine logits == plain-version "
+                "forward on the card, bitwise")
+        if label == profile_label and label not in logits:
+            phase_profile(torch, eng, imgs[:max(buckets)])
+        logits.setdefault(label, out)
+        rates.setdefault(label, []).append(
+            (eng.stats()["images_per_s"], len(imgs) / wall))
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    for label, rs in rates.items():
+        log(f"[plan-serve] {cfg.name}/{cfg.policy.value} {label} plan on "
+            f"{card}: " + "; ".join(f"{b:.1f} img/s batched, {w:.1f} wall"
+                                    for b, w in rs))
+    return launches, logits
+
+
+def phase_plan(torch, card: str) -> dict:
+    """Explore the six committed plans on the card (batch 1, per-layer
+    walls and each plan's ``annotate_plan`` roofline fractions), sweep the
+    implicit engine's Cin chunk on one VGG16 layer, and check the
+    committed artifact.  Returns the committed plans."""
+    from repro_torch.analysis.roofline import annotate_plan
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner, tuning
+    from repro_torch.core.precision import MatmulPolicy
+
+    t0 = time.perf_counter()
+    errors = planner.check()
+    committed = planner.load_plans(planner.plan_path("cuda"), backend="cuda")
+    log(f"[plan] check of {planner.plan_path('cuda').name}: "
+        f"{len(errors)} violation(s), plans {sorted(committed)}")
+    if errors:
+        raise SystemExit("[plan] " + "; ".join(errors))
+    for name in PLAN_MODELS:
+        for pv in POLICIES:
+            key = planner.plan_key(name, pv)
+            if key not in committed:
+                raise SystemExit(f"[plan] the artifact lacks {key}")
+            if {e.source for e in committed[key].entries} != {"measured"}:
+                raise SystemExit(f"[plan] {key}: not every layer measured")
+    agree = total = 0
+    for name in PLAN_MODELS:
+        for pv in POLICIES:
+            cfg = get_config(name, policy=MatmulPolicy(pv))
+            plan = annotate_plan(planner.explore(
+                cfg, requant=True, backend="cuda", device="cuda"))
+            ref = committed[planner.plan_key(name, pv)]
+            for e in plan.entries:
+                if e.source != "measured":
+                    raise SystemExit(f"[plan] {name}/{pv} {e.key}: "
+                                     f"source {e.source}")
+                old = ref.by_key[e.key]
+                agree += (old.path, old.fusion) == (e.path, e.fusion)
+                total += 1
+                log(f"[plan] {name}/{pv} {e.key}: {e.path}/{e.fusion} "
+                    f"block={list(e.block) if e.block else '-'} "
+                    f"{e.est_us:.1f} us (committed {old.path}/{old.fusion} "
+                    f"{old.est_us} us), roofline {e.roofline_us:.2f} us, "
+                    f"frac {e.roofline_frac:.4f}")
+            fracs = [e.roofline_frac for e in plan.entries]
+            wall_us = sum(e.est_us for e in plan.entries)
+            log(f"[plan] {name}/{pv}: {wall_us:.1f} us over {len(fracs)} "
+                "layers at batch 1, roofline_frac "
+                f"min {min(fracs):.4f} max {max(fracs):.4f}")
+    log(f"[plan] this run's ranking == the committed one on {agree} of "
+        f"{total} layers; explored in {time.perf_counter() - t0:.1f}s "
+        f"on {card}")
+    geo = dict(kh=3, kw=3, stride=1, h=28, cin=512, cout=512)
+    for pv in POLICIES:
+        variant, base_bits = planner._policy_variant(pv)
+        cache = tuning.TuneCache("unsaved.json")
+        log(f"[plan] bk sweep, vgg16 {geo} {pv} (batch 1):")
+        best = tuning.tune_layer("implicit", variant=variant,
+                                 base_bits=base_bits, cache=cache,
+                                 verbose=True, device="cuda", **geo)
+        log(f"[plan]   best block {list(best)}: {cache.entries}")
+    return committed
+
+
 def random_biases(torch, params: list, gen) -> list:
     """``cnn_init`` zeroes every bias; fill them (0.1 * randn from ``gen``)
     so the bitwise checks cover each layer's bias epilogue."""
@@ -901,6 +1072,9 @@ def phase_serve(torch, card: str) -> dict:
     gen = torch.Generator().manual_seed(0)
     params = random_biases(torch, cnn_init(cfg, gen, device="cuda"), gen)
     eng = CNNServeEngine(cfg, params, buckets=(1, 4, 16), device="cuda")
+    log("[serve] plan (resolved): " + ", ".join(
+        f"{e.key} {e.path}/{e.fusion} ({e.source})"
+        for e in eng.plan.entries))
     t0 = time.perf_counter()
     eng.warmup()
     log(f"[serve] warmup {time.perf_counter() - t0:.2f}s "
@@ -919,8 +1093,7 @@ def phase_serve(torch, card: str) -> dict:
     forwards = eng.batcher.steps - steps0
     if sorted(done) != list(range(n_req)):
         raise SystemExit(f"served {len(done)} of {n_req} requests")
-    want = {"implicit_conv": forwards, "winograd": 3 * forwards,
-            "kom_matmul": 4 * forwards}
+    want = plan_launches(cfg, eng.plan, forwards)
     log(f"[serve] {forwards} forwards, launches {launches}, "
         f"expected {want}")
     if launches != want:
@@ -970,6 +1143,30 @@ def phase_serve(torch, card: str) -> dict:
         f"wall, p50 latency {1e3 * s['latency_p50_s']:.2f} ms, "
         f"p95 latency {1e3 * s['latency_p95_s']:.2f} ms, "
         f"buckets {s['bucket_counts']}")
+    # The plan AlexNet served before the measured artifact: the heuristic;
+    # both plans again on fresh engines (committed, heuristic, heuristic,
+    # committed).
+    from repro_torch.core.planner import heuristic_plan
+    heur = heuristic_plan(cfg)
+    ab, h_logits = plan_ab(torch, cfg, params, imgs, (1, 4, 16), card,
+                           [("heuristic", heur), ("heuristic", heur),
+                            ("committed", None)],
+                           first=("committed", s, wall),
+                           profile_label="heuristic")
+    # im2col, implicit and Winograd share one activation-scale plan, so
+    # their logits agree bit for bit; the systolic engine quantizes per
+    # sample and a pool_quant handoff per 4x4 cell, which moves them.
+    own_scales = [e.path == "systolic" or e.fusion == "pool_quant"
+                  for e in eng.plan.entries + heur.entries]
+    diff = float(np.abs(h_logits["heuristic"] - logits).max())
+    if not any(own_scales) and diff != 0.0:
+        raise SystemExit(f"[serve] heuristic-plan logits != committed-plan "
+                         f"logits (max diff {diff}) on one scale plan")
+    log(f"[serve] heuristic vs committed plan logits: max diff {diff:.3e}"
+        + (" (a systolic or pool_quant layer quantizes with its own "
+           "scales)" if any(own_scales) else " (bitwise)"))
+    for name, n in ab.items():
+        launches[name] = launches.get(name, 0) + n
     return launches
 
 
@@ -1074,6 +1271,17 @@ def phase_serve_vgg16(torch, card: str) -> dict:
         f"wall, p50 latency {1e3 * s['latency_p50_s']:.2f} ms, "
         f"p95 latency {1e3 * s['latency_p95_s']:.2f} ms, "
         f"buckets {s['bucket_counts']}")
+    # The committed measured plan (the engine's default resolution), then
+    # both plans again on fresh engines (fused, committed, committed,
+    # fused); the first committed run's logits against the plain versions.
+    del eng
+    ab, _ = plan_ab(torch, cfg, params, imgs, (1, 4, 8), card,
+                    [("committed", None), ("committed", None),
+                     ("fused model-only", plan)],
+                    first=("fused model-only", s, wall),
+                    profile_label="committed")
+    for name, n in ab.items():
+        launches[name] = launches.get(name, 0) + n
     return launches
 
 
@@ -2211,6 +2419,7 @@ def main() -> int:
     def add(counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    phase_plan(torch, card)
     for path in (phase_serve, phase_serve_vgg16):
         add(path(torch, card))
     params = vgg16_params(torch)

@@ -1,6 +1,7 @@
 """Roofline floors on one NVIDIA H100: one conv layer (the port of
 ``repro.analysis.roofline``'s ``conv_mult_counts`` / ``conv_layer_roofline``),
-the two attention kernels (:func:`attention_roofline`,
+a plan's entries (:func:`annotate_plan`), the two attention kernels
+(:func:`attention_roofline`,
 :func:`decode_attention_roofline`) and the chunkwise mLSTM
 (:func:`mlstm_chunk_roofline`).
 
@@ -92,6 +93,35 @@ def conv_layer_roofline(path: str, *, kh, kw, stride, h, cin, cout,
                               handoff_in=handoff_in) / H100["hbm_bw"]
     return {"compute_s": compute_s, "memory_s": memory_s,
             "roofline_s": max(compute_s, memory_s), **counts}
+
+
+def annotate_plan(plan, *, n: int = 1):
+    """Stamp each entry of an ExecutionPlan with its H100 floor.
+
+    ``roofline_us``: :func:`conv_layer_roofline` of the entry's geometry,
+    engine and the plan's variant at batch ``n``; ``roofline_frac =
+    roofline_us / est_us`` only where ``est_us`` was measured
+    (``source="measured"``): a model-scored entry's fraction would compare
+    the model with itself.  Returns a new plan.
+    """
+    import dataclasses
+
+    from repro_torch.core.planner import _policy_variant, parse_geometry_key
+
+    variant, _ = _policy_variant(plan.policy)
+    entries = []
+    for e in plan.entries:
+        g = parse_geometry_key(e.key)
+        r = conv_layer_roofline(
+            e.path, kh=g["kh"], kw=g["kw"], stride=g["stride"], h=g["h"],
+            cin=g["cin"], cout=g["cout"], variant=variant, n=n)
+        roof_us = 1e6 * r["roofline_s"]
+        frac = (roof_us / e.est_us
+                if e.source == "measured" and e.est_us else None)
+        entries.append(dataclasses.replace(
+            e, roofline_us=round(roof_us, 3),
+            roofline_frac=round(frac, 6) if frac is not None else None))
+    return dataclasses.replace(plan, entries=tuple(entries))
 
 
 def _live_pairs(sq, skv, *, causal, window, q_offset) -> int:

@@ -1,38 +1,57 @@
-"""Whole-network ExecutionPlan: the port of ``repro.core.planner``'s plan
-artifact, explorer, heuristic and resolution chain.
+"""Whole-network ExecutionPlan: the port of ``repro.core.planner``.
 
 * :class:`ExecutionPlan` / :class:`LayerPlan` keep the reference's
   ``execution-plan/v1`` JSON schema, so a plan written by either package
   drives the other.
-* :func:`explore` (``model_only=True``): per conv layer, the candidate
-  engines (:func:`candidate_paths`) ranked by the H100 roofline floor
-  (:mod:`repro_torch.analysis.roofline` over the port's traffic model),
-  then the topology-driven fusion axis: ``pool`` on every pool-followed
-  implicit layer, ``pool_quant`` under ``requant`` when the layer has a
-  handoff consumer.  Measured exploration and the tile tuner are not
-  ported yet.
+* :func:`explore`: per conv layer, the candidate engines
+  (:func:`candidate_paths`) scored either by measured wall time of the
+  public :func:`~repro_torch.core.substrate.conv2d`, fused and unfused, on
+  the device (:func:`_measure_paths`; the winner's Cin chunk refined by
+  :func:`~repro_torch.core.tuning.tune_layer`), or -- ``model_only=True``
+  -- by the H100 roofline floor (:mod:`repro_torch.analysis.roofline` over
+  the port's traffic model).  Then the topology-driven fusion axis:
+  ``pool`` on every pool-followed implicit layer, ``pool_quant`` under
+  ``requant`` when the layer has a handoff consumer.  A layer no
+  candidate scored falls back to the heuristic with ``source="default"``
+  and a log line.
 * :func:`heuristic_path` is the port's single call site of
-  :func:`~repro_torch.core.substrate.select_conv_path`.
-* :func:`resolve_plan`: an explicit plan, else the heuristic plan.  The
-  backend ``"cuda"`` has no committed artifact, so the default path of a
-  model does not change; :func:`save_plans`/:func:`load_plans` keep port
-  artifacts under ``repro_torch/tuned/plans/``.
+  :func:`~repro_torch.core.substrate.select_conv_path`; its thin-stem
+  threshold comes from the tuner (:func:`~repro_torch.core.tuning.stem_cin`).
+* :func:`resolve_plan`: an explicit plan, else the committed artifact
+  ``repro_torch/tuned/plans/<backend>.json`` (:func:`committed_plan`),
+  else the heuristic plan.  ``python -m repro_torch.core.planner --check``
+  validates the artifacts (:func:`check`), ``--explore`` writes them.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
 import os
 import pathlib
+import re
 import tempfile
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from .substrate import (INT_POLICY_SPECS, STEM_CIN, not_ported,
+from .substrate import (FUSIONS, INT_POLICY_SPECS, path_supports_fusion,
                         path_supports_policy, policy_int_spec,
                         select_conv_path)
 
 PLAN_SCHEMA = "execution-plan/v1"
+PLANS_DIRNAME = "plans"
+
+#: Provenance tags of a LayerPlan entry: its score came from a
+#: measurement, the cost model, or the heuristic fallback.
+SOURCES = ("measured", "model", "default")
+
+#: Engines whose entry records the block its kernel runs.
+TUNABLE_KINDS = ("implicit", "systolic", "winograd")
+
+#: What a conv wrapper raises when it refuses a shape or a policy, before
+#: any launch: the explorer prunes such a candidate.  Anything else (a
+#: failed build, a CUDA error) propagates.
+_REFUSALS = (ValueError, TypeError)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +127,31 @@ def geometry_key(*, kh, kw, stride, h, cin, cout, padding) -> str:
     return f"k{kh}x{kw}|s{stride}|h{h}|cin{cin}|cout{cout}|{padding}"
 
 
+def parse_geometry_key(key: str) -> dict:
+    """Invert :func:`geometry_key`."""
+    m = re.fullmatch(
+        r"k(\d+)x(\d+)\|s(\d+)\|h(\d+)\|cin(\d+)\|cout(\d+)\|(SAME|VALID)",
+        key)
+    if m is None:
+        raise ValueError(f"malformed geometry key: {key!r}")
+    kh, kw, stride, h, cin, cout = (int(v) for v in m.groups()[:6])
+    return dict(kh=kh, kw=kw, stride=stride, h=h, cin=cin, cout=cout,
+                padding=m.group(7))
+
+
 def heuristic_path(*, kh: int, kw: int, stride: int, cin: int, cout: int,
                    policy=None, cached_weight: bool = False,
-                   padding: str = "SAME") -> str:
-    """The shape/policy dispatch rule; thin-stem threshold
-    :data:`~repro_torch.core.substrate.STEM_CIN`."""
+                   padding: str = "SAME", backend: str = "cuda",
+                   stem_cin: Optional[int] = None) -> str:
+    """The shape/policy dispatch rule, its thin-stem threshold from the
+    tuner's cache for ``backend`` (:func:`~repro_torch.core.tuning.stem_cin`)
+    unless ``stem_cin`` is given."""
+    if stem_cin is None:
+        from .tuning import stem_cin as tuned_stem_cin
+        stem_cin = tuned_stem_cin(backend)
     return select_conv_path(
         kh=kh, kw=kw, stride=stride, cin=cin, cout=cout, policy=policy,
-        cached_weight=cached_weight, padding=padding)
+        cached_weight=cached_weight, padding=padding, stem_cin=stem_cin)
 
 
 def heuristic_plan(cfg, *, backend: str = "cuda") -> ExecutionPlan:
@@ -131,6 +167,7 @@ def heuristic_plan(cfg, *, backend: str = "cuda") -> ExecutionPlan:
             continue
         seen.add(key)
         path = heuristic_path(policy=cfg.policy, cached_weight=cached,
+                              backend=backend,
                               **{k: v for k, v in g.items() if k != "h"})
         entries.append(LayerPlan(key=key, path=path, block=None,
                                  source="default"))
@@ -165,7 +202,7 @@ def materialized_fallback_plan(plan: ExecutionPlan) -> ExecutionPlan:
 
 
 # ---------------------------------------------------------------------------
-# The design-space explorer (model-only).
+# The design-space explorer.
 # ---------------------------------------------------------------------------
 
 def _policy_variant(policy) -> tuple:
@@ -177,47 +214,54 @@ def _policy_variant(policy) -> tuple:
     return ("native", 7)
 
 
-def candidate_paths(*, kh, kw, stride, cin, padding, policy) -> List[str]:
-    """Engines of the port that run this layer exactly, pruned.
+def candidate_paths(*, kh, kw, stride, cin, cout, padding, policy,
+                    backend: str) -> List[str]:
+    """Engines of the port that run this layer exactly on ``backend``.
 
-    im2col honors every policy.  implicit runs the integer policies above
-    the thin-stem threshold; winograd needs an integer policy,
-    3x3/s1/SAME, ``cin >= STEM_CIN`` and the growth bound.  The reference
-    lists the systolic engine and the implicit float variants only on the
-    TPU; the port runs both when a caller pins ``conv_path``, and leaves
-    ranking them on the card to the measured explorer (ROADMAP.md).  The
-    candidates are the same on every device.
+    im2col honors every policy.  On ``"cuda"`` (the reference's TPU
+    branch: the engines run compiled) the implicit engine runs every
+    policy it implements and the systolic engine its shape niche
+    (``max(kh, kw) <= 7``, ``stride <= 2``, ``cin >= stem``, ``cout %
+    128 == 0``); elsewhere (the reference's CPU list) implicit runs the
+    integer policies only and systolic is no candidate.  Winograd needs an
+    integer policy, 3x3/s1/SAME and the growth bound.  Streaming engines
+    need ``cin >= stem``, the tuner's thin-stem threshold.
     """
     from repro_torch.kernels.conv2d.winograd import winograd_accum_bound
 
-    paths = ["im2col"]
+    from .tuning import stem_cin
+
+    stem = stem_cin(backend)
     spec = policy_int_spec(policy)
-    if spec is not None and cin >= STEM_CIN \
-            and path_supports_policy("implicit", policy):
+    compiled = backend == "cuda"
+    paths = ["im2col"]
+    if path_supports_policy("implicit", policy) and cin >= stem \
+            and (spec is not None or compiled):
         paths.append("implicit")
+    if compiled and path_supports_policy("systolic", policy) \
+            and max(kh, kw) <= 7 and stride <= 2 and cin >= stem \
+            and cout % 128 == 0:
+        paths.append("systolic")
     if spec is not None and (kh, kw, stride, padding) == (3, 3, 1, "SAME") \
-            and cin >= STEM_CIN and winograd_accum_bound(
+            and cin >= stem and winograd_accum_bound(
                 cin, variant=spec[0], base_bits=spec[1]) < 2**31:
         paths.append("winograd")
     return paths
 
 
-def _entry_block(path: str, *, kh, kw, cin, variant, base_bits):
-    """The tiles ``path``'s kernel runs with.  For implicit, ``bk`` is the
-    Cin chunk the kernel reads: it sets the recombine groups and the
-    handoff consumer's f32 order."""
-    from repro_torch.kernels.conv2d.implicit_gemm import max_cin_block
-    from .tuning import IMPLICIT_TILE, WINOGRAD_TILE
+def _tkey(t: dict) -> str:
+    """The geometry key of a topology (or geometry) row."""
+    return geometry_key(**{k: t[k] for k in ("kh", "kw", "stride", "h",
+                                             "cin", "cout", "padding")})
 
-    if path == "implicit":
-        bk = cin
-        if variant in ("karatsuba", "schoolbook"):
-            bk = min(cin, max_cin_block(kh, kw, variant=variant,
-                                        base_bits=base_bits))
-        return (*IMPLICIT_TILE, bk)
-    if path == "winograd":
-        return WINOGRAD_TILE
-    return None
+
+def _topology_keys(cfg) -> tuple:
+    """(keys followed by a maxpool, keys that feed a handoff consumer)."""
+    from repro_torch.models.cnn import cnn_layer_topology
+
+    topo = cnn_layer_topology(cfg)
+    return ({_tkey(t) for t in topo if t["pool_after"]},
+            {_tkey(t) for t in topo if t["handoff_next"]})
 
 
 def _entry_bound(path: str, *, kh, kw, cin, variant, base_bits
@@ -235,40 +279,105 @@ def _entry_bound(path: str, *, kh, kw, cin, variant, base_bits
                                  base_bits=base_bits))
 
 
-def explore(cfg, *, model_only: bool = False, backend: str = "cuda",
-            requant: bool = False) -> ExecutionPlan:
-    """Search path x fusion per conv layer of ``cfg`` with the cost model.
+def _measure_paths(paths, *, kh, kw, stride, h, cin, cout, padding, policy,
+                   iters: int, verbose: bool, device=None) -> dict:
+    """Wall-time each candidate through the public ``conv2d`` on ``device``.
 
-    ``model_only=True`` ranks each layer's candidates by
-    :func:`~repro_torch.analysis.roofline.conv_layer_roofline` (H100
-    peaks, the port's traffic model; no execution, deterministic).  The
-    fusion axis comes from the topology
-    (:func:`~repro_torch.models.cnn.cnn_layer_topology`): an implicit
-    layer followed by the 2x2/s2 maxpool gets ``"pool"``; with
-    ``requant=True`` and an integer policy, one that also feeds an
-    eligible 3x3/s1 consumer gets ``"pool_quant"`` (a quantization-recipe
-    change, hence opt-in).  Measured exploration (``model_only=False``)
-    and the tile tuner are not ported yet.
+    Seed-0 batch-1 operands made with numpy (the weight a cached QWeight
+    under an integer policy, so per-weight state such as the Winograd
+    planes engages as in the engine); each engine timed fused
+    (``bias=, activation="relu"``) and unfused (bias and ReLU after it) by
+    :func:`~repro_torch.core.tuning._time_call`.  Returns ``{path: (us,
+    fused_us, unfused_us)}``; a candidate the wrapper refuses
+    (ValueError/TypeError, before any launch) is left out, any other
+    error propagates.
     """
-    if not model_only:
-        raise not_ported("measured exploration (explore(model_only=False))",
-                         "Queue 1 item 6: the measured explorer and the "
-                         "tile tuner")
+    import numpy as np
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    from .substrate import conv2d, quantize_weight
+    from .tuning import _time_call
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, h, h, cin)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((kh, kw, cin, cout)) * 0.1
+                          ).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((cout,)).astype(
+        np.float32)).to(dev)
+    spec = policy_int_spec(policy)
+    if spec is not None:
+        w = quantize_weight(w, base_bits=spec[1])
+    out = {}
+    with torch.inference_mode():
+        for path in paths:
+            fused = functools.partial(
+                conv2d, stride=stride, padding=padding, policy=policy,
+                path=path, bias=b, activation="relu")
+
+            def unfused(a, q, p=path):
+                return torch.relu(conv2d(a, q, stride=stride,
+                                         padding=padding, policy=policy,
+                                         path=p) + b)
+            try:
+                us_f = _time_call(fused, x, w, iters=iters)
+                us_u = _time_call(unfused, x, w, iters=iters)
+            except _REFUSALS as e:
+                if verbose:
+                    print(f"    {path}: refused ({type(e).__name__}: {e})")
+                continue
+            if verbose:
+                print(f"    {path}: fused {us_f:.1f} us, unfused "
+                      f"{us_u:.1f} us")
+            out[path] = (min(us_f, us_u), us_f, us_u)
+    return out
+
+
+def explore(cfg, *, model_only: bool = False, backend: str = "cuda",
+            iters: int = 3, tune_tiles: bool = True, requant: bool = False,
+            verbose: bool = False, device=None) -> ExecutionPlan:
+    """Search path x fusion (x the implicit Cin chunk) per conv layer.
+
+    Measured (the default): every candidate of :func:`candidate_paths` on
+    ``backend`` is wall-timed through the public ``conv2d`` on ``device``
+    (default: the GPU) at batch 1 (:func:`_measure_paths`), the fastest
+    wins, its fusion is ``bias_relu`` unless the unfused call was faster
+    (``none``), and with ``tune_tiles`` the implicit engine's Cin chunk is
+    swept (:func:`~repro_torch.core.tuning.tune_layer`).  ``source`` is
+    ``measured``, and ``roofline_frac`` the H100 floor over the wall.
+
+    ``model_only=True`` ranks by
+    :func:`~repro_torch.analysis.roofline.conv_layer_roofline` (H100
+    peaks, the port's traffic model; no execution, deterministic), over
+    the candidates every backend runs (``candidate_paths(backend="cpu")``):
+    the engines only the card runs -- systolic, the float implicit
+    variants -- issue the same multiplies as the implicit engine, so the
+    floor cannot tell them apart; measurement ranks them.
+
+    Then the topology's fusion axis (:func:`~repro_torch.models.cnn.
+    cnn_layer_topology`): an implicit layer followed by the 2x2/s2 maxpool
+    gets ``"pool"``; with ``requant=True`` and an integer policy, one that
+    also feeds an eligible 3x3/s1 consumer gets ``"pool_quant"`` (a
+    quantization-recipe change, hence opt-in).  A layer none of whose
+    candidates scored falls back to the heuristic path with
+    ``source="default"``, logged.
+    """
     from repro_torch.analysis.roofline import conv_layer_roofline
     from repro_torch.models.cnn import cnn_conv_geometries, cnn_layer_topology
 
-    from .tuning import conv_hbm_bytes
+    from .tuning import conv_hbm_bytes, resolve_block, tune_layer
 
     variant, base_bits = _policy_variant(cfg.policy)
     is_int = policy_int_spec(cfg.policy) is not None
     topo = cnn_layer_topology(cfg)
-    shape_keys = ("kh", "kw", "stride", "h", "cin", "cout", "padding")
-    tkey = lambda t: geometry_key(**{k: t[k] for k in shape_keys})
-    pool_keys = {tkey(t) for t in topo if t["pool_after"]}
-    handoff_pairs = [(tkey(topo[i]), tkey(topo[i + 1]))
+    pool_keys, producer_keys = _topology_keys(cfg)
+    handoff_pairs = [(_tkey(topo[i]), _tkey(topo[i + 1]))
                      for i in range(len(topo) - 1)
                      if topo[i]["handoff_next"]]
-    producer_keys = {p for p, _ in handoff_pairs}
+    fallback = heuristic_plan(cfg, backend=backend)
     entries: List[LayerPlan] = []
     planned: Dict[str, str] = {}
     for g in cnn_conv_geometries(cfg):
@@ -276,14 +385,33 @@ def explore(cfg, *, model_only: bool = False, backend: str = "cuda",
         if key in planned:
             continue
         shape = {k: g[k] for k in ("kh", "kw", "stride", "h", "cin", "cout")}
-        paths = candidate_paths(padding=g["padding"], policy=cfg.policy,
-                                **{k: g[k] for k in ("kh", "kw", "stride",
-                                                     "cin")})
-        scored = {p: 1e6 * conv_layer_roofline(p, variant=variant,
-                                               **shape)["roofline_s"]
-                  for p in paths}
-        best = min(scored, key=scored.get)
-        fusion = "bias_relu"
+        paths = candidate_paths(
+            padding=g["padding"], policy=cfg.policy,
+            backend="cpu" if model_only else backend,
+            **{k: g[k] for k in ("kh", "kw", "stride", "cin", "cout")})
+        if verbose:
+            print(f"  {key}: candidates {paths}")
+        roof = {p: conv_layer_roofline(p, variant=variant, **shape)
+                for p in paths}
+        best, est_us, fusion, source = None, None, "bias_relu", "default"
+        if model_only:
+            scored = {p: 1e6 * roof[p]["roofline_s"] for p in paths}
+            best = min(scored, key=scored.get)
+            est_us, source = scored[best], "model"
+        else:
+            walls = _measure_paths(paths, padding=g["padding"],
+                                   policy=cfg.policy, iters=iters,
+                                   verbose=verbose, device=device, **shape)
+            if walls:
+                best = min(walls, key=lambda p: walls[p][0])
+                est_us, us_f, us_u = walls[best]
+                fusion = "bias_relu" if us_f <= us_u else "none"
+                source = "measured"
+        if best is None:
+            best = fallback.by_key[key].path
+            print(f"[planner] {cfg.name}/{key}: no candidate scored, "
+                  f"falling back to heuristic path {best!r} "
+                  "(source=default)")
         if best == "implicit" and key in pool_keys:
             fusion = "pool"
             if requant and is_int and key in producer_keys:
@@ -291,18 +419,33 @@ def explore(cfg, *, model_only: bool = False, backend: str = "cuda",
         planned[key] = fusion
         handoff_in = any(planned.get(p) == "pool_quant"
                          for p, c in handoff_pairs if c == key)
+        block = None
+        if best in TUNABLE_KINDS:
+            if not model_only and tune_tiles:
+                block = tuple(tune_layer(best, variant=variant,
+                                         base_bits=base_bits, iters=iters,
+                                         device=device, **shape))
+            else:
+                block = tuple(resolve_block(best, variant=variant,
+                                            base_bits=base_bits,
+                                            backend=backend, **shape))
+        r = roof.get(best)
+        roof_us = 1e6 * r["roofline_s"] if r else None
+        # A handoff consumer runs on the implicit engine whatever it
+        # planned (cnn_forward's rule), so its bytes are the implicit's.
         entries.append(LayerPlan(
-            key=key, path=best,
-            block=_entry_block(best, kh=g["kh"], kw=g["kw"], cin=g["cin"],
-                               variant=variant, base_bits=base_bits),
-            fusion=fusion, est_us=round(scored[best], 3),
-            hbm_bytes=conv_hbm_bytes(best, variant=variant, fusion=fusion,
+            key=key, path=best, block=block, fusion=fusion,
+            est_us=round(est_us, 3) if est_us is not None else None,
+            hbm_bytes=conv_hbm_bytes("implicit" if handoff_in else best,
+                                     variant=variant, fusion=fusion,
                                      handoff_in=handoff_in, **shape),
-            roofline_us=round(scored[best], 3), roofline_frac=None,
+            roofline_us=round(roof_us, 3) if roof_us is not None else None,
+            roofline_frac=(round(roof_us / est_us, 6)
+                           if source == "measured" and est_us else None),
             exactness_bound=_entry_bound(best, kh=g["kh"], kw=g["kw"],
                                          cin=g["cin"], variant=variant,
                                          base_bits=base_bits),
-            source="model"))
+            source=source))
     return ExecutionPlan(model=cfg.name,
                          policy=getattr(cfg.policy, "value", cfg.policy),
                          backend=backend, entries=tuple(entries))
@@ -313,9 +456,10 @@ def explore(cfg, *, model_only: bool = False, backend: str = "cuda",
 # ---------------------------------------------------------------------------
 
 def plans_dir() -> pathlib.Path:
-    """Where the port keeps plan artifacts (never the reference's
-    ``benchmarks/tuned/plans/``)."""
-    return pathlib.Path(__file__).resolve().parent.parent / "tuned" / "plans"
+    """Where the port keeps plan artifacts: ``plans/`` under the tuner's
+    directory (never the reference's ``benchmarks/tuned/plans/``)."""
+    from .tuning import tuned_dir
+    return tuned_dir() / PLANS_DIRNAME
 
 
 def plan_path(backend: str = "cuda") -> pathlib.Path:
@@ -371,9 +515,26 @@ def load_plans(path, *, backend: str = "cuda") -> Dict[str, ExecutionPlan]:
             for k, v in data.get("plans", {}).items()}
 
 
+def committed_plan(model: str, policy,
+                   backend: str = "cuda") -> Optional[ExecutionPlan]:
+    """The committed artifact's plan for (model, policy) on ``backend``, or
+    None when the artifact has none.  A foreign stamp or a stale schema
+    raises (:class:`PlanArtifactError`)."""
+    path = plan_path(backend)
+    if not path.exists():
+        return None
+    return load_plans(path, backend=backend).get(plan_key(model, policy))
+
+
 def resolve_plan(cfg, plan: Optional[ExecutionPlan] = None, *,
                  backend: str = "cuda") -> ExecutionPlan:
-    """Explicit plan (checked against cfg and backend) > heuristic plan."""
+    """Explicit plan (checked against cfg and backend) > the committed
+    artifact for (model, policy, backend) > the heuristic plan.
+
+    Committed plans describe the full-size models; a reduced twin's
+    geometries miss every entry, and each such layer falls back to auto
+    dispatch in the forward.
+    """
     if plan is not None:
         pv = getattr(cfg.policy, "value", cfg.policy)
         if (plan.model, plan.policy) != (cfg.name, pv):
@@ -385,4 +546,198 @@ def resolve_plan(cfg, plan: Optional[ExecutionPlan] = None, *,
                 f"plan is stamped backend={plan.backend!r}, this process "
                 f"runs {backend!r}")
         return plan
+    hit = committed_plan(cfg.name, cfg.policy, backend=backend)
+    if hit is not None:
+        return hit
     return heuristic_plan(cfg, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# Check mode: validate the committed artifacts, no execution.
+# ---------------------------------------------------------------------------
+
+def _check_entry(ent: LayerPlan, g: dict, *, policy: str, is_int: bool,
+                 pool_keys, producer_keys, where: str) -> List[str]:
+    from .tuning import feasible
+
+    errors = []
+    variant, base_bits = _policy_variant(policy)
+    if ent.source not in SOURCES:
+        errors.append(f"{where}: bad source {ent.source!r}")
+    if ent.path not in ("im2col", *TUNABLE_KINDS):
+        return errors + [f"{where}: unknown path {ent.path!r}"]
+    if not path_supports_policy(ent.path, policy):
+        return errors + [f"{where}: path {ent.path!r} cannot run policy "
+                         f"{policy!r} exactly"]
+    if ent.fusion not in FUSIONS:
+        return errors + [f"{where}: unknown fusion {ent.fusion!r} (expected "
+                         f"one of {list(FUSIONS)})"]
+    if not path_supports_fusion(ent.path, ent.fusion):
+        errors.append(f"{where}: fusion {ent.fusion!r} is not implementable "
+                      f"by path {ent.path!r} (pooled epilogue is "
+                      "implicit-engine only)")
+    if ent.fusion in ("pool", "pool_quant") and ent.key not in pool_keys:
+        errors.append(f"{where}: fusion {ent.fusion!r} but no maxpool "
+                      "follows this geometry")
+    if ent.fusion == "pool_quant":
+        if not is_int:
+            errors.append(f"{where}: pool_quant needs an integer policy, "
+                          f"plan is {policy!r}")
+        elif ent.key not in producer_keys:
+            errors.append(f"{where}: pool_quant but no eligible 3x3/s1 "
+                          "handoff consumer follows")
+    bound = _entry_bound(ent.path, kh=g["kh"], kw=g["kw"], cin=g["cin"],
+                         variant=variant, base_bits=base_bits)
+    if bound is not None and bound >= 2**31:
+        errors.append(f"{where}: {ent.path} accumulation bound "
+                      f"{bound:.3g} wraps int32")
+    if ent.path in TUNABLE_KINDS and ent.block is not None:
+        fus = ent.fusion if ent.fusion in FUSIONS and path_supports_fusion(
+            ent.path, ent.fusion) else "bias_relu"
+        ok, why = feasible(ent.path, kh=g["kh"], kw=g["kw"],
+                           stride=g["stride"], h=g["h"], cin=g["cin"],
+                           cout=g["cout"], variant=variant,
+                           base_bits=base_bits, block=tuple(ent.block),
+                           fusion=fus)
+        if not ok:
+            errors.append(f"{where}: block {list(ent.block)} -- {why}")
+    return errors
+
+
+def check(paths: Optional[Iterable[os.PathLike]] = None) -> List[str]:
+    """Validate plan artifacts (default: every file in :func:`plans_dir`);
+    returns the violations.
+
+    Per file: current schema, backend stamp equal to the file name.  Per
+    plan: a registered CNN, an entry for every conv geometry of the
+    full-size model and none for another, a known ``source``, an engine
+    that runs the policy exactly, a fusion the engine implements and the
+    topology allows (pool only where a maxpool follows, pool_quant only
+    under an integer policy with a 3x3/s1 consumer), a block the tuner
+    finds feasible, and an int32 bound below 2^31.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.models.cnn import cnn_conv_geometries
+
+    if paths is None:
+        d = plans_dir()
+        paths = sorted(d.glob("*.json")) if d.exists() else []
+    errors: List[str] = []
+    for path in paths:
+        path = pathlib.Path(path)
+        try:
+            plans = load_plans(path, backend=path.stem)
+        except (PlanArtifactError, ValueError, OSError) as e:
+            errors.append(f"{path.name}: {e}")
+            continue
+        for pkey, plan in plans.items():
+            where = f"{path.name}:{pkey}"
+            try:
+                cfg = get_config(plan.model)
+            except KeyError:
+                errors.append(f"{where}: unknown model {plan.model!r}")
+                continue
+            if getattr(cfg, "family", None) != "cnn":
+                errors.append(f"{where}: {plan.model!r} is not a CNN -- "
+                              "plans cover conv spines only")
+                continue
+            cfg = cfg.replace(policy=_as_policy(plan.policy, errors, where))
+            pool_keys, producer_keys = _topology_keys(cfg)
+            want: Dict[str, dict] = {}
+            for g in cnn_conv_geometries(cfg):
+                want.setdefault(geometry_key(**g), g)
+            for key, g in want.items():
+                ent = plan.by_key.get(key)
+                if ent is None:
+                    errors.append(f"{where}: layer {key} has NO entry "
+                                  "(silent coverage gap)")
+                    continue
+                errors += _check_entry(
+                    ent, g, policy=plan.policy,
+                    is_int=plan.policy in INT_POLICY_SPECS,
+                    pool_keys=pool_keys, producer_keys=producer_keys,
+                    where=f"{where}/{key}")
+            for key in sorted(set(plan.by_key) - set(want)):
+                errors.append(f"{where}: entry {key} matches no conv layer "
+                              f"of {plan.model}")
+    return errors
+
+
+def _as_policy(pv: str, errors: list, where: str):
+    from .precision import MatmulPolicy
+    try:
+        return MatmulPolicy(pv)
+    except ValueError:
+        errors.append(f"{where}: unknown policy {pv!r}")
+        return MatmulPolicy.FP32
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Validate the committed plan artifacts (--check) or "
+                    "explore plans on a device and write them (--explore).")
+    ap.add_argument("--check", action="store_true",
+                    help="validate repro_torch/tuned/plans/*.json")
+    ap.add_argument("--explore", action="store_true",
+                    help="run the explorer and write the plans")
+    ap.add_argument("--model-only", action="store_true",
+                    help="rank by the H100 roofline cost model, no "
+                         "execution")
+    ap.add_argument("--models", nargs="*",
+                    default=["alexnet", "vgg16", "vgg19"])
+    ap.add_argument("--policies", nargs="*",
+                    default=["kom_int14", "schoolbook_int16"])
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--requant", action="store_true",
+                    help="allow the pool_quant handoff fusion")
+    ap.add_argument("--device", default=None,
+                    help="device of the measured explorer (default: the "
+                         "GPU); its type is the plans' backend")
+    ap.add_argument("--out", default=None,
+                    help="artifact path (default repro_torch/tuned/plans/"
+                         "<backend>.json)")
+    ap.add_argument("--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.check:
+        errors = check()
+        for e in errors:
+            print(f"PLAN VIOLATION: {e}")
+        d = plans_dir()
+        n_files = len(list(d.glob("*.json"))) if d.exists() else 0
+        print(f"plan artifacts: {n_files} file(s), {len(errors)} "
+              "violation(s)")
+        return 1 if errors else 0
+    if args.explore:
+        from repro_torch.configs import get_config
+        from repro_torch.device import resolve_device
+
+        from .precision import MatmulPolicy
+
+        backend = "cuda" if args.model_only and args.device is None \
+            else resolve_device(args.device).type
+        plans = []
+        for name in args.models:
+            for pv in args.policies:
+                cfg = get_config(name).replace(policy=MatmulPolicy(pv))
+                print(f"[planner] exploring {name}|{pv} "
+                      f"({'cost model' if args.model_only else 'measured'}"
+                      f", {backend})")
+                plan = explore(cfg, model_only=args.model_only,
+                               backend=backend, iters=args.iters,
+                               requant=args.requant, verbose=args.verbose,
+                               device=args.device)
+                for e in plan.entries:
+                    blk = list(e.block) if e.block else "-"
+                    print(f"  {e.key}: {e.path} block={blk} "
+                          f"fusion={e.fusion} est_us={e.est_us} "
+                          f"source={e.source}")
+                plans.append(plan)
+        out = save_plans(plans, path=args.out)
+        print(f"[planner] wrote {out}")
+        return 0
+    ap.print_help()
+    return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -61,6 +61,13 @@ def policy_dot_general(a: torch.Tensor, b, *, policy=MatmulPolicy.NATIVE_BF16,
     return out if bias is None else out + bias
 
 
+def operand_scale(amax: torch.Tensor, qmax: int) -> torch.Tensor:
+    """``max(amax, 1e-12) / qmax`` as a true division: the scale
+    :func:`kom_q_dot` gives each operand (the reference's eager rule)."""
+    amax = torch.clamp_min(amax, 1e-12)
+    return amax / torch.full_like(amax, qmax)
+
+
 def kom_q_dot(a: torch.Tensor, b: torch.Tensor, *, variant: str,
               base_bits: int, bias: torch.Tensor | None = None
               ) -> torch.Tensor:
@@ -87,8 +94,7 @@ def kom_q_dot(a: torch.Tensor, b: torch.Tensor, *, variant: str,
 
     def quantize(x):
         x = x.to(torch.float32)
-        amax = torch.clamp_min(x.abs().amax(), 1e-12)
-        scale = amax / torch.full_like(amax, qmax)
+        scale = operand_scale(x.abs().amax(), qmax)
         return quantize_values(x, scale, qmax).to(torch.int16), scale
 
     qa, sa = quantize(a)

@@ -481,37 +481,36 @@ def conv_pads(h, w, kh, kw, stride, padding):
     return ho, wo, pads
 
 
-#: The thin-stem threshold: a conv with fewer input channels keeps the small
-#: materialized patch GEMM (its per-tap contraction starves any streaming
-#: engine).  A constant in the port until its tuner measures the crossover.
-STEM_CIN = 16
-
-
 def select_conv_path(*, kh: int, kw: int, stride: int, cin: int, cout: int,
                      policy=None, cached_weight: bool = False,
-                     padding: str = "SAME") -> str:
+                     padding: str = "SAME", stem_cin: int | None = None
+                     ) -> str:
     """Shape- and policy-driven conv dispatch (the reference's rule, GPU).
 
     Integer policies with a cached :class:`QWeight`: 3x3/s1/SAME layers
     under ``winograd_accum_bound`` -> ``winograd``; other layers with
-    ``cin >= STEM_CIN`` -> ``implicit``; thin stems -> ``im2col``.  Float
+    ``cin >= stem_cin`` -> ``implicit``; thin stems -> ``im2col``.  Float
     policies -> ``im2col``.  The reference selects the systolic engine and
     the implicit float variants only on the TPU, so this rule never picks
-    them; they run when a caller pins ``path`` (their ranking on the card
-    is the measured explorer's work).
+    them; on the card the measured explorer ranks them.  ``stem_cin``
+    (default 16) is the thin-stem threshold: the planner's
+    :func:`~repro_torch.core.planner.heuristic_path`, this function's one
+    caller, passes the tuner's per-backend value; this function reads no
+    cache.
     """
     del cout
+    stem = 16 if stem_cin is None else stem_cin
     pv = getattr(policy, "value", policy)
     if pv in INT_POLICY_SPECS and cached_weight:
         if kh == 3 and kw == 3 and stride == 1 and padding == "SAME" \
-                and cin >= STEM_CIN:
+                and cin >= stem:
             from repro_torch.kernels.conv2d.winograd import \
                 winograd_accum_bound
             variant, base_bits = INT_POLICY_SPECS[pv]
             if winograd_accum_bound(cin, variant=variant,
                                     base_bits=base_bits) < 2**31:
                 return "winograd"
-        return "implicit" if cin >= STEM_CIN else "im2col"
+        return "implicit" if cin >= stem else "im2col"
     return "im2col"
 
 
@@ -530,7 +529,9 @@ def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
     dequantized under fp32), the implicit engine also bf16x3/bf16x6.
     ``block`` is the engine's tile schedule from a plan; the port's kernels
     pick their own tiles and read only the implicit engine's Cin chunk (it
-    sets the recombine groups and the handoff consumer's f32 order).
+    sets the recombine groups and the handoff consumer's f32 order), which
+    with ``block=None`` comes from the tuner
+    (:func:`~repro_torch.core.tuning.resolve_block`).
 
     The implicit engine's epilogue fusions: ``pool=(window, pstride[,
     ppad])`` folds the FOLLOWING maxpool into the conv (the output is the
@@ -553,9 +554,11 @@ def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
         path = "implicit"
     if path == "auto":
         from .planner import heuristic_path
+        dev = x.values.device if isinstance(x, QActivation) else x.device
         path = heuristic_path(kh=kh, kw=kw, stride=stride, cin=cin,
                               cout=cout, policy=policy, padding=padding,
-                              cached_weight=isinstance(w, QWeight))
+                              cached_weight=isinstance(w, QWeight),
+                              backend=dev.type)
     if pool is not None or quantize_next is not None:
         want = "pool_quant" if quantize_next is not None else "pool"
         if not path_supports_fusion(path, want):

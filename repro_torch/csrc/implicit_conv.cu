@@ -427,6 +427,8 @@ __global__ void __launch_bounds__(THREADS)
 template <bool KARATSUBA, bool POOL, bool HANDOFF>
 cudaError_t launch(dim3 grid_dim, cudaStream_t st, const ConvArgs& a) {
   auto* kern = implicit_conv_kernel<KARATSUBA, POOL, HANDOFF>;
+  static_assert(SMEM <= 227 * 1024,
+                "dynamic shared memory past a Hopper block's 227 KB");
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -708,12 +708,16 @@ cudaError_t launch_kernel(Kernel k, size_t smem, int threads,
 
 template <int BM, int BN, bool FAST>
 cudaError_t launch_simt(const ConvArgs& a, cudaStream_t st) {
+  static_assert(Ring<BM, BN>::bytes() <= 227 * 1024,
+                "dynamic shared memory past a Hopper block's 227 KB");
   return launch_kernel(conv_simt_kernel<BM, BN, FAST>, Ring<BM, BN>::bytes(),
                        BM * BN / 64, a, BM, BN, st);
 }
 
 template <int S, int BM, int BN, bool FAST>
 cudaError_t launch_mma(const ConvArgs& a, cudaStream_t st) {
+  static_assert(LimbRing<S, BM, BN>::bytes() <= 227 * 1024,
+                "dynamic shared memory past a Hopper block's 227 KB");
   return launch_kernel(conv_mma_kernel<S, BM, BN, FAST>,
                        LimbRing<S, BM, BN>::bytes(), BM * BN / 64, a, BM, BN,
                        st);

@@ -314,6 +314,8 @@ __global__ void finish_kernel(const SysArgs a) {
 template <bool KARATSUBA, int WM>
 cudaError_t launch(dim3 grid_dim, cudaStream_t st, const SysArgs& a) {
   auto* kern = systolic_kernel<KARATSUBA, WM>;
+  static_assert(Tile<WM>::SMEM <= 227 * 1024,
+                "dynamic shared memory past a Hopper block's 227 KB");
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -522,6 +522,8 @@ __global__ void finish_kernel(const WArgs a) {
 template <bool KARATSUBA>
 cudaError_t launch(dim3 grid_dim, cudaStream_t st, const WArgs& a) {
   auto* kern = winograd_kernel<KARATSUBA>;
+  static_assert(Planes<KARATSUBA>::SMEM <= 227 * 1024,
+                "dynamic shared memory past a Hopper block's 227 KB");
   static bool sized = false;  // one attribute call per instantiation
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -18,6 +18,9 @@ handoff variant.
 Tiles are the kernels' own; of a plan's ``block`` only the implicit
 engine's Cin chunk ``bk`` is read: it sets the recombine groups on layers
 too deep for one int32 accumulation, and the handoff consumer's f32 order.
+Without a block the chunk comes from the tuner
+(:func:`~repro_torch.core.tuning.resolve_block`, keyed by the input's
+device type).
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from .conv2d import (NATIVE_NAME, SYSTOLIC_VARIANTS, conv2d_systolic_raw,
 from .implicit_gemm import (FLOAT_PASSES, INT_VARIANTS, KERNEL_POOLS,
                             cell_scales, conv2d_implicit_float_raw,
                             conv2d_implicit_handoff_raw, conv2d_implicit_raw,
-                            group_spans, max_cin_block, recombine_schedule)
+                            group_spans, recombine_schedule)
 from .winograd import (WINOGRAD_OUTPUT_SCALE, channel_absmax,
                        conv2d_winograd_raw, tile_scale_grid,
                        tile_scales_from_cmax, tile_scales_upsampled,
@@ -126,9 +129,10 @@ def conv2d_implicit(x, w, *, stride: int = 1, padding: str = "SAME",
     passes).  Integer variants take a :class:`QWeight` or a float HWIO
     weight (quantized here with the same per-output-channel rule); float
     variants dequantize a QWeight.  ``block=(bm, bc, bk)``: only ``bk`` is
-    read by the integer variants (default: the widest wrap-free chunk,
-    capped at Cin); ``fold_every`` overrides the recombine schedule
-    (tests).
+    read by the integer variants (default: the tuner's
+    :func:`~repro_torch.core.tuning.resolve_block`, without a cache entry
+    the widest wrap-free chunk, capped at Cin); ``fold_every`` overrides
+    the recombine schedule (tests).
 
     ``pool=(pw, ps[, ppad])`` maxpools the output inside the call -- in the
     integer kernel's epilogue for 2x2/s2 VALID, after the core for any
@@ -186,12 +190,16 @@ def _implicit_int_core(x, w, *, stride, padding, variant, base_bits, bias,
     if not isinstance(w, QWeight):
         w = quantize_weight(w, base_bits=base_bits)
     base_bits = w.base_bits
-    kh, kw, cin, _ = w.shape
+    kh, kw, cin, cout = w.shape
     qmax = kom_qmax(base_bits)
     if block is not None:
         bk = block[2]
     else:
-        bk = max_cin_block(kh, kw, variant=variant, base_bits=base_bits)
+        from repro_torch.core.tuning import resolve_block
+        dev = x.values.device if handoff_in else x.device
+        bk = resolve_block("implicit", kh=kh, kw=kw, stride=stride,
+                           h=x.shape[1], cin=cin, cout=cout, variant=variant,
+                           base_bits=base_bits, backend=dev.type)[2]
     bk = min(bk, cin)
     kernel_pool = None
     if pool is not None and pool[2] == "VALID" and pool[:2] in KERNEL_POOLS:

@@ -19,8 +19,13 @@ config (tiny widths); without it the model is served at full width (the
 reference's LM launcher cannot turn its ``--reduced`` off; the port keeps
 one rule for both halves).
 
-CNNs: ``--explore --model-only [--requant]`` plans every conv layer with
-the port's cost model at launch (``--requant`` allows the ``pool_quant``
+CNNs: without ``--plan``/``--explore`` the engine resolves its plan
+(the committed ``repro_torch/tuned/plans/<backend>.json``, else the
+heuristic; the committed ``cuda.json`` ranks engines by batch-1 walls
+that host overhead dominates, see ``PERF.md``).  ``--tune`` sweeps the
+implicit engine's Cin chunk on the device first.  ``--explore`` plans every conv layer at launch by timing the
+candidate engines on the device (measured; ``--model-only`` ranks by the
+port's cost model instead, ``--requant`` allows the ``pool_quant``
 handoff); ``--plan PATH`` serves a saved plan artifact.  ``--conv-path``
 pins ONE engine for every conv layer instead (it refuses ``--plan`` and
 ``--explore``, and a policy the engine cannot run exactly, as the
@@ -49,19 +54,21 @@ from repro_torch.core.substrate import validate_path_policy
 from repro_torch.device import resolve_device
 
 
-def _cnn_plan(cfg, args, backend: str):
+def _cnn_plan(cfg, args, device):
     """The ExecutionPlan the flags ask for, or None (the engine's chain).
 
-    ``--explore`` runs the port's explorer for this config at launch;
-    ``--plan PATH`` serves a saved artifact for this device type.
+    ``--explore`` runs the port's explorer for this config at launch
+    (measured on ``device`` unless ``--model-only``); ``--plan PATH``
+    serves a saved artifact for this device type; neither leaves the
+    plan to the engine's resolution chain.
     """
     from repro_torch.core.planner import explore, load_plans, plan_key
 
     if args.explore:
-        plan = explore(cfg, model_only=args.model_only, backend=backend,
-                       requant=args.requant)
+        plan = explore(cfg, model_only=args.model_only, backend=device.type,
+                       requant=args.requant, device=device)
     elif args.plan:
-        plans = load_plans(args.plan, backend=backend)
+        plans = load_plans(args.plan, backend=device.type)
         key = plan_key(cfg.name, cfg.policy)
         if key not in plans:
             raise SystemExit(f"--plan {args.plan}: no plan for {key!r} "
@@ -85,7 +92,8 @@ def serve_cnn(cfg, args) -> int:
     params = cnn_init(cfg, gen, device=device)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     engine = CNNServeEngine(cfg, params, buckets=buckets, device=device,
-                            plan=_cnn_plan(cfg, args, device.type))
+                            plan=_cnn_plan(cfg, args, device),
+                            tune=args.tune)
     engine.warmup()
     rng = np.random.default_rng(args.seed)
     h, c = cfg.img_size, cfg.in_channels
@@ -182,10 +190,14 @@ def main(argv=None) -> int:
                     help="plan every conv layer with the explorer at launch")
     ap.add_argument("--model-only", action="store_true",
                     help="with --explore: rank by the H100 roofline cost "
-                         "model (the only mode ported)")
+                         "model instead of timing the engines")
     ap.add_argument("--requant", action="store_true",
                     help="with --explore: allow the pool_quant handoff "
                          "(the next layer reads the producer's int16)")
+    ap.add_argument("--tune", action="store_true",
+                    help="sweep the implicit engine's Cin chunk of every "
+                         "conv layer on the device first (into "
+                         "repro_torch/tuned/measured.local.json)")
     ap.add_argument("--slots", type=int, default=4,
                     help="LM: decode slots")
     ap.add_argument("--max-new", type=int, default=12,
@@ -198,6 +210,7 @@ def main(argv=None) -> int:
         cnn_only = [f for f, on in (
             ("--explore", args.explore), ("--plan", args.plan),
             ("--model-only", args.model_only), ("--requant", args.requant),
+            ("--tune", args.tune),
             ("--conv-path", args.conv_path != "auto")) if on]
         if cnn_only:
             ap.error(f"{', '.join(cnn_only)}: CNN flags; {args.arch} is an "

@@ -8,11 +8,21 @@ The port of ``repro.serving.cnn_engine``:
   ``Expired``/``Failed`` results, retries.
 * **Quantize-once weights**: under the integer policies the float params
   become cached :class:`~repro_torch.core.substrate.QWeight` leaves once at
-  build; each step quantizes activations only, per row / patch / tile /
-  sample, so a request's logits do not depend on its batch-mates or
-  padding.  The float policies (``fp32``, ``bf16x3``, ``bf16x6``) serve the
-  float params as they are.
-* **Planned conv dispatch**: the ExecutionPlan is resolved once at build,
+  build (``prequantize=None``/``True``); each step quantizes activations
+  only, per row / patch / tile / sample, so a request's logits do not
+  depend on its batch-mates or padding.  ``prequantize=False`` keeps the
+  float weights, which the forward quantizes inside every call (the
+  im2col path's per-tensor ``kom_q_dot``, as the reference's engine does).
+  The float policies (``fp32``, ``bf16x3``, ``bf16x6``) serve the float
+  params as they are.
+* **Tuned tiles**: ``tune=True`` sweeps the implicit engine's Cin chunk
+  for this config's conv layers on the engine's device before anything
+  else (:func:`~repro_torch.core.tuning.tune_config`, into the git-ignored
+  ``measured.local.json``); layers the plan leaves without a block resolve
+  theirs through that cache.
+* **Planned conv dispatch**: the ExecutionPlan is resolved once at build
+  (explicit ``plan=`` > the committed ``repro_torch/tuned/plans/
+  <backend>.json`` > the heuristic),
   unless ``cfg.conv_path`` pins one engine for every layer (``systolic``,
   ``implicit``, ...), which excludes a plan; a fused plan (``pool``/``pool_quant`` entries, e.g. from
   ``explore(cfg, model_only=True, requant=True)``) runs the implicit
@@ -70,7 +80,8 @@ class CNNServeEngine:
     def __init__(self, cfg: CNNConfig, params, *,
                  buckets: Sequence[int] = (1, 4, 16, 64), device=None,
                  plan=None, retry: Optional[RetryPolicy] = None, mesh=None,
-                 faults=None):
+                 faults=None, prequantize: Optional[bool] = None,
+                 tune: bool = False):
         if mesh is not None:
             raise not_ported("CNNServeEngine(mesh=...)",
                              "Queue 1 item 10: distribution")
@@ -79,8 +90,15 @@ class CNNServeEngine:
                              "Queue 1 item 7: fault injection")
         self.cfg = cfg
         self.device = resolve_device(device)
-        # Integer policies: weights become cached QWeights ONCE, here.
-        self.params = cnn_quantize_params(params_to(params, self.device), cfg)
+        if tune:
+            from repro_torch.core.tuning import tune_config
+            tune_config(cfg, device=self.device)
+        # Integer policies: weights become cached QWeights ONCE, here,
+        # unless the caller keeps them float (prequantize=False).
+        params = params_to(params, self.device)
+        if prequantize is None or prequantize:
+            params = cnn_quantize_params(params, cfg)
+        self.params = params
         self.plan = None
         if cfg.conv_path == "auto":
             from repro_torch.core.planner import resolve_plan

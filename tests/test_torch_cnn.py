@@ -223,6 +223,7 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.serving.cnn_engine, repro_torch.launch.serve,"
             " repro_torch.convert, repro_torch.core.planner,"
             " repro_torch.core.tuning, repro_torch.analysis.roofline,"
+            " repro_torch.analysis.traffic,"
             " repro_torch.core.karatsuba,"
             " repro_torch.analysis.float_tolerance,"
             " chip_smoke;"

@@ -298,7 +298,8 @@ def test_degrade_reroute_under_pool_quant_plan_equals_reference_fallback():
 
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("arch", ["vgg16", "alexnet"])
-def test_explore_fuses_exactly_where_the_topology_allows(arch, policy):
+def test_explore_fuses_exactly_where_the_topology_allows(arch, policy,
+                                                         monkeypatch):
     """Full size: pool on every pool-followed implicit layer, pool_quant
     where it also feeds a 3x3/s1 consumer, and the reference's paths and
     fusions.  The Cin chunk is the port's own (the whole Cin: one
@@ -327,8 +328,14 @@ def test_explore_fuses_exactly_where_the_topology_allows(arch, policy):
     if arch == "vgg16":
         fusions = [e.fusion for e in plan.entries]
         assert fusions.count("pool_quant") == 4 and fusions[-1] == "pool"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        planner.explore(cfg, model_only=False)
+    # Measured exploration, under a patched timer (no conv runs): every
+    # layer scored by its wall, source="measured".
+    from repro_torch.core import tuning
+    monkeypatch.setattr(tuning, "_time_call", lambda fn, *a, **k: 7.0)
+    measured = planner.explore(cfg, model_only=False, device="cpu",
+                               tune_tiles=False)
+    assert {e.source for e in measured.entries} == {"measured"}
+    assert {e.est_us for e in measured.entries} == {7.0}
 
 
 def test_cost_models_count_like_the_reference_and_price_the_fusions():

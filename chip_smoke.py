@@ -15,15 +15,20 @@ Phases, each fatal on failure:
    AlexNet's full-width shapes (batch 16) under ``kom_int14`` and
    ``schoolbook_int16``: max abs difference must be 0; time both, and time
    the limb GEMM's three int8 passes through ``torch._int_mm`` as a
-   yardstick (no single PyTorch call computes the convs' quantized limb
-   arithmetic); run the implicit kernel on Winograd's layers (conv3-5)
+   yardstick, and for the implicit and Winograd convs the same passes
+   over the im2col of the layer's int16 operands as ``raw_product_ms``
+   (the raw product only; their ``library_ms`` stays null: no PyTorch
+   call computes their quantization and epilogue); run the
+   implicit kernel on Winograd's layers (conv3-5)
    with the same tile scales: its output must equal Winograd's bit for
    bit, and both are timed;
 4. the same for the implicit kernel's pooled and handoff variants at every
    full-width VGG16 producer and consumer shape (batch 8), its plain
    epilogue at VGG16's three convs between them, and at AlexNet's conv2
    (pooled) and conv3 (handoff) (batch 16), both policies; each variant
-   summed over one VGG16 forward beside its bound;
+   summed over one VGG16 forward beside its bound and the raw-product
+   ``torch._int_mm`` yardstick of its convs (``raw_product_ms``: no
+   pool, no handoff; ``library_ms`` null);
 5. planning on the card: ``python -m repro_torch.core.planner --check``'s
    ``check()`` on the committed ``repro_torch/tuned/plans/cuda.json`` (no
    violation; the six plans -- alexnet, vgg16, vgg19 under both integer
@@ -59,6 +64,35 @@ Phases, each fatal on failure:
    ``plan_launches``; the committed plan's first 8 logits equal to its
    plain-version forward bit for bit), a profile of one committed step,
    and images/s of each run beside the card's name and power limit;
+6c. chaos: phase 6's 32 AlexNet requests on the committed plan (buckets
+   1/4/16) under ``FaultPlan(seed=1, transient_rate=1.0,
+   transient_fails=1, poison_uids=(3,))`` with retries on a fake clock:
+   conservation, uid 3 alone failed typed, retries taken, health
+   ``healthy``, every served logit equal to phase 6's bit for bit, launch
+   counts per successful forward; images/s beside phase 6's;
+6d. a genuine CUDA OOM three times (a forward that first allocates twice
+   the card's memory): the ladder drops buckets 16 and 4 and reroutes to
+   the materialized im2col plan, the next forwards succeed; on the
+   heuristic plan the degraded logits equal the healthy ones bit for bit,
+   on the committed plan (systolic layers) the fallback plan's
+   plain-version forward on the card, the distance from the healthy
+   logits logged;
+6e. the dispatcher on one card and one fake clock: AlexNet and VGG16
+   (committed plans) and xlstm-125m (``kom_int14``, 4 slots); a VGG16
+   ``batch`` backlog, then ``interactive`` AlexNet and ``standard`` xlstm
+   requests: AlexNet drains first, every model conserves, each CNN's
+   logits equal its solo engine's (phases 6 and 6b) bit for bit, the
+   xlstm's greedy tokens a solo run's, also under transient faults with
+   retries; launches per forward and serve_step;
+6f. the launcher in-process on the real clock: ``--arch alexnet,vgg16
+   --policy kom_int14 --requests 8 --slo standard --fault-plan
+   transient=0.2,poison=0.05`` (buckets 1/4/16) returns 0 with one fleet
+   line, and for each model: conservation, no request expired, the
+   failed uids exactly those the seeded plan poisons, every fault the
+   engine recorded one the injector injected, health ``healthy`` and
+   nothing contained, launches per warmup and served forward as the plan
+   implies, and the served logits equal to a fault-free forward of the
+   same images bit for bit;
 7. count the tensor-core instructions (``HGMMA``, ``HMMA``) in the float
    conv library's SASS (the bf16 schedules must issue ``mma.sync``) and run
    the one-MMA rounding probe (``analysis/mma_probe``: every output within
@@ -172,9 +206,11 @@ Phases, each fatal on failure:
     ``analysis/kom_float_weights.FLOAT_WEIGHTS_TOL``, which the card's
     ``base_bits=6`` forward must miss;
 19. print the card line, a ``kernels`` JSON line (launches: the serving
-    runs, the fp32 yardstick forward, the granite prefill forward and the
-    two ops' own runs, each counted from 0) and, last,
-    ``{"ok": true, "device": ...}``.
+    runs, phases 6c-6f, the fp32 yardstick forward, the granite prefill
+    forward and the two ops' own runs, each counted from 0; ``library_ms``
+    one PyTorch call computing the same function, else null;
+    ``raw_product_ms`` the implicit and Winograd convs' raw integer
+    product, else null) and, last, ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 ``repro_torch`` package beside it.
@@ -435,7 +471,7 @@ def alexnet_calls(torch, policy: str, gen, dev) -> list:
         nbytes = 4 * x.numel() + 2 * (uh.numel() + ul.numel()) \
             + 4 * s_tile.numel() + 8 * cout + 4 * BATCH * 13 * 13 * cout
         calls.append(("winograd", label, run, ops, nbytes,
-                      (x, uh, implicit)))
+                      (x, uh, implicit, wv)))
     return calls
 
 
@@ -480,12 +516,27 @@ def im2col_int_mm_ms(torch, xq, wq, pad, variant, bb) -> float | None:
                             wq.reshape(kh * kw * cin, cout), variant, bb)
 
 
+def raw_product_ms(torch, x, wq, variant, bb) -> float | None:
+    """Yardstick for the implicit and Winograd convs, which quantize their
+    float input inside the kernel: ``im2col_int_mm_ms`` on ``x`` quantized
+    per tensor to the policy's int16 levels (SAME padding), i.e. the raw
+    integer product alone -- no quantization, scales, epilogue or pool."""
+    from repro_torch.core.substrate import kom_qmax
+    if x.dtype != torch.int16:
+        x = torch.round(x * (kom_qmax(bb) / x.abs().amax().clamp_min(
+            1e-30))).to(torch.int16)
+    return im2col_int_mm_ms(torch, x, wq, wq.shape[0] // 2, variant, bb)
+
+
 def compare_call(torch, build, policy, name, label, run, ops, nbytes,
-                 lib_ms=None, kind="int8", tol=None, control=None) -> tuple:
+                 lib_ms=None, kind="int8", tol=None, control=None,
+                 raw_ms=None) -> tuple:
     """Kernel vs plain version on the same inputs, then timed: exact, or
     with ``tol`` max|kernel - plain| <= tol * max|plain|, while the plain
     version of the neighbouring schedule (``control()``) misses ``tol``.
-    Returns (max_abs_err, kernel ms, plain ms)."""
+    ``raw_ms`` (logged only) is the ``raw_product_ms`` yardstick of a conv
+    that no PyTorch call computes whole.  Returns (max_abs_err, kernel ms,
+    plain ms)."""
     got = run()
     with build.plain_versions():
         want = run()
@@ -510,7 +561,8 @@ def compare_call(torch, build, policy, name, label, run, ops, nbytes,
         f"shape={tuple(got.shape)} max_abs_err={err} max_rel={rel:.3e} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-        f"bound_ms={b_ms:.5f} ({b_by}, {kind})")
+        + ("" if raw_ms is None else f"raw_product_ms={raw_ms:.4f} ")
+        + f"bound_ms={b_ms:.5f} ({b_by}, {kind})")
     if nan or not ok:
         raise SystemExit(f"{name}/{label}/{policy}: kernel != plain "
                          f"(max_abs_err={err}, max_rel={rel}, tol={tol}, "
@@ -519,11 +571,20 @@ def compare_call(torch, build, policy, name, label, run, ops, nbytes,
 
 
 def add_summary(summary, name, err, ms, plain_ms, ops, nbytes, lib_ms,
-                has_library, kind="int8"):
+                has_library, kind="int8", raw_ms=None):
+    """Sum one call into ``summary[name]``.  ``library_ms`` is one PyTorch
+    call computing the same function (None where there is none);
+    ``raw_product_ms`` the raw integer product alone (the
+    ``raw_product_ms`` yardstick), kept apart so that ``library_ms`` has
+    one meaning in every row."""
     s = summary.setdefault(name, {
         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
         "library_ms": 0.0 if has_library else None,
+        "raw_product_ms": None if raw_ms is None else 0.0,
         "max_abs_err": 0.0, "ops": 0.0, "bytes": 0.0, "kind": kind})
+    if s["raw_product_ms"] is not None:
+        s["raw_product_ms"] = None if raw_ms is None \
+            else s["raw_product_ms"] + raw_ms
     s["ms"] += ms
     s["plain_ms"] += plain_ms
     s["ops"] += ops
@@ -558,12 +619,16 @@ def phase_compare(torch) -> dict:
         variant, bb = INT_POLICY_SPECS[policy]
         for name, label, run, ops, nbytes, args in alexnet_calls(
                 torch, policy, gen, torch.device("cuda")):
-            lib_ms = None
+            lib_ms = raw_ms = None
             if name == "kom_matmul":
                 lib_ms = int_mm_passes_ms(torch, args[0], args[1], variant,
                                           bb)
+            else:   # the implicit conv (x, wv), Winograd (x, .., .., wv)
+                raw_ms = raw_product_ms(torch, args[0], args[-1], variant,
+                                        bb)
             err, ms, plain_ms = compare_call(torch, build, policy, name,
-                                             label, run, ops, nbytes, lib_ms)
+                                             label, run, ops, nbytes, lib_ms,
+                                             raw_ms=raw_ms)
             if name == "winograd":
                 t = engines.setdefault(policy, [0.0, 0.0])
                 for i, v in enumerate(winograd_vs_implicit(
@@ -571,13 +636,16 @@ def phase_compare(torch) -> dict:
                     t[i] += v
             if policy == "kom_int14":
                 add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
-                            lib_ms, name == "kom_matmul")
+                            lib_ms, name == "kom_matmul", raw_ms=raw_ms)
     for policy, (w_ms, i_ms) in engines.items():
         log(f"[compare] AlexNet conv3-5 ({policy}, batch {BATCH}): winograd "
             f"{w_ms:.4f} ms, the implicit engine on the same layers "
             f"{i_ms:.4f} ms (the same bits)")
     log("[compare] the implicit and Winograd convs have no single PyTorch "
-        "call computing the same quantized limb arithmetic: library_ms null")
+        "call computing the same quantized limb arithmetic: library_ms null; "
+        "raw_product_ms is torch._int_mm per int8 pass over the im2col of "
+        "the same layer's int16 operands, the raw product only (no "
+        "quantization, scales or epilogue)")
     for s in summary.values():
         s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"],
                                                 s["kind"])
@@ -589,7 +657,8 @@ def phase_compare(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 def fused_calls(torch, policy: str, gen, dev) -> list:
-    """One (kernel, label, run, ops, bytes) per pooled / handoff call:
+    """One (kernel, label, run, ops, bytes, lib) per pooled / handoff call
+    (``lib()``: the ``raw_product_ms`` yardstick of its conv):
     VGG16's producers and consumers at batch 8 (one forward at the largest
     serving bucket), AlexNet conv2 (pooled) and conv3 (handoff) at batch
     16.  Inputs are made the way the serving path makes them: ReLU'd
@@ -637,7 +706,8 @@ def fused_calls(torch, policy: str, gen, dev) -> list:
         ho = h // 2 if pool else h
         nbytes = 4 * x.numel() + 2 * wv.numel() + 4 * asc.numel() \
             + 8 * cout + 4 * n * ho * ho * cout
-        return ("implicit_conv_pool", label, run, ops, nbytes)
+        lib = lambda: raw_product_ms(torch, x, wv, variant, bb)
+        return ("implicit_conv_pool", label, run, ops, nbytes, lib)
 
     def handoff(label, n, h, cin, cout):
         qa = handoff_quantize(act((n, h, h, cin)), base_bits=bb)
@@ -649,12 +719,13 @@ def fused_calls(torch, policy: str, gen, dev) -> list:
         ops = 2.0 * n * h * h * 9 * cin * cout * passes
         nbytes = 2 * qa.values.numel() + 4 * qa.scale.numel() \
             + 2 * wv.numel() + 8 * cout + 4 * n * h * h * cout
-        return ("implicit_conv_handoff", label, run, ops, nbytes)
+        lib = lambda: raw_product_ms(torch, qa.values, wv, variant, bb)
+        return ("implicit_conv_handoff", label, run, ops, nbytes, lib)
 
     def plain(label, n, h, cin, cout):
-        name, _, run, ops, nbytes = pooled(label, n, h, 3, cin, cout,
-                                           pool=None)
-        return ("implicit_conv", label, run, ops, nbytes)
+        _, _, run, ops, nbytes, lib = pooled(label, n, h, 3, cin, cout,
+                                             pool=None)
+        return ("implicit_conv", label, run, ops, nbytes, lib)
 
     calls = [pooled(f"v{h}", VGG_BATCH, h, 3, cin, cout)
              for h, cin, cout in VGG16_POOLED]
@@ -676,17 +747,19 @@ def phase_compare_fused(torch) -> dict:
     gen = torch.Generator().manual_seed(2)
     summary, vgg_plain = {}, {}
     for policy in POLICIES:
-        for name, label, run, ops, nbytes in fused_calls(
+        for name, label, run, ops, nbytes, lib in fused_calls(
                 torch, policy, gen, torch.device("cuda")):
+            raw_ms = lib()
             err, ms, plain_ms = compare_call(torch, build, policy, name,
-                                             label, run, ops, nbytes)
+                                             label, run, ops, nbytes,
+                                             raw_ms=raw_ms)
             if name == "implicit_conv":   # row 4a's VGG16 part, logged
                 if policy == "kom_int14":
                     add_summary(vgg_plain, name, err, ms, plain_ms, ops,
-                                nbytes, None, False)
+                                nbytes, None, False, raw_ms=raw_ms)
             elif policy == "kom_int14" and label.startswith("v"):
                 add_summary(summary, name, err, ms, plain_ms, ops, nbytes,
-                            None, False)
+                            None, False, raw_ms=raw_ms)
             elif name in summary:
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -695,16 +768,20 @@ def phase_compare_fused(torch) -> dict:
     log(f"[compare] implicit_conv (plain epilogue) over one VGG16 forward "
         f"({len(VGG16_PLAIN)} convs, batch {VGG_BATCH}, kom_int14): "
         f"kernel_ms={s['ms']:.4f} plain_ms={s['plain_ms']:.4f} "
+        f"raw_product_ms={s['raw_product_ms']} "
         f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / s['ms']:.1f}%)")
     for name in ("implicit_conv_pool", "implicit_conv_handoff"):
         s = summary[name]
         b_ms, b_by = bound_ms(s["ops"], s["bytes"], s["kind"])
         log(f"[compare] {name} over one VGG16 forward (batch {VGG_BATCH}, "
             f"kom_int14): kernel_ms={s['ms']:.4f} plain_ms="
-            f"{s['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by}, "
-            f"{100 * b_ms / s['ms']:.1f}%)")
+            f"{s['plain_ms']:.4f} raw_product_ms={s['raw_product_ms']} "
+            f"bound_ms={b_ms:.4f} ({b_by}, {100 * b_ms / s['ms']:.1f}%)")
     log("[compare] the pooled and handoff variants have no single PyTorch "
-        "call computing the same quantized limb arithmetic: library_ms null")
+        "call computing the same function: library_ms null; "
+        "raw_product_ms is torch._int_mm per int8 pass over the im2col of "
+        "each conv's int16 operands, the raw product only (no pool, handoff "
+        "quantization or epilogue)")
     for s in summary.values():
         s["bound_ms"], s["bound_by"] = bound_ms(s["ops"], s["bytes"],
                                                 s["kind"])
@@ -1057,7 +1134,7 @@ def random_biases(torch, params: list, gen) -> list:
     return params
 
 
-def phase_serve(torch, card: str) -> dict:
+def phase_serve(torch, card: str) -> tuple:
     import numpy as np
 
     from repro_torch.configs import get_config, reduced
@@ -1167,14 +1244,16 @@ def phase_serve(torch, card: str) -> dict:
            "scales)" if any(own_scales) else " (bitwise)"))
     for name, n in ab.items():
         launches[name] = launches.get(name, 0) + n
-    return launches
+    return launches, {"cfg": cfg, "params": params, "imgs": imgs,
+                      "committed": logits, "heuristic": h_logits["heuristic"],
+                      "rate": n_req / wall}
 
 
 # ---------------------------------------------------------------------------
 # Phase 6: serve full-width VGG16 through the fused plan.
 # ---------------------------------------------------------------------------
 
-def phase_serve_vgg16(torch, card: str) -> dict:
+def phase_serve_vgg16(torch, card: str) -> tuple:
     import dataclasses
 
     import numpy as np
@@ -1275,14 +1354,435 @@ def phase_serve_vgg16(torch, card: str) -> dict:
     # both plans again on fresh engines (fused, committed, committed,
     # fused); the first committed run's logits against the plain versions.
     del eng
-    ab, _ = plan_ab(torch, cfg, params, imgs, (1, 4, 8), card,
-                    [("committed", None), ("committed", None),
-                     ("fused model-only", plan)],
-                    first=("fused model-only", s, wall),
-                    profile_label="committed")
+    ab, ab_logits = plan_ab(torch, cfg, params, imgs, (1, 4, 8), card,
+                            [("committed", None), ("committed", None),
+                             ("fused model-only", plan)],
+                            first=("fused model-only", s, wall),
+                            profile_label="committed")
     for name, n in ab.items():
         launches[name] = launches.get(name, 0) + n
+    return launches, {"cfg": cfg, "params": params, "imgs": imgs,
+                      "committed": ab_logits["committed"]}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6c-6f: serving under faults, full width.
+# ---------------------------------------------------------------------------
+
+#: The chaos run's attempt budget: it must outlast the bisection depth.  A
+#: 16-image batch holding the poisoned uid fails ``bisect_after`` = 2
+#: times, then once at 8, 4 and 2 images; an innocent may then meet its
+#: own transient fault alone: 6 failures before it serves, so 7 attempts
+#: (with 6, innocents are quarantined; the CPU tests hold both).
+CHAOS_ATTEMPTS = 7
+
+
+def conserved(q) -> bool:
+    """Every submitted request in exactly one ledger."""
+    return len(q.done) + len(q.expired) + len(q.failed) == q.submitted_count
+
+
+def same_logits(tag, done, want: dict) -> None:
+    """Each served request's logits against ``want[uid]``, bit for bit."""
+    import numpy as np
+    bad = [u for u, row in want.items()
+           if not np.array_equal(done[u].logits, row)]
+    log(f"[{tag}] {len(want) - len(bad)} of {len(want)} served logits "
+        "equal the fault-free run's, bitwise")
+    if bad:
+        raise SystemExit(f"[{tag}] logits differ from the fault-free run "
+                         f"for uids {bad}")
+
+
+def phase_chaos(torch, card: str, alex: dict) -> dict:
+    """Phase 6c: AlexNet ``kom_int14`` on the committed plan (buckets
+    1/4/16, the 32 requests of phase 6) under ``FaultPlan(seed=1,
+    transient_rate=1.0, transient_fails=1, poison_uids=(3,))`` with
+    ``RetryPolicy(max_attempts=CHAOS_ATTEMPTS, backoff_base=0.001)`` on a
+    fake clock: every request conserved, uid 3 alone failed typed, retries
+    taken, the
+    engine healthy, every served logit equal to phase 6's fault-free run
+    bit for bit, and the launches those forwards imply (a fault fires
+    before its forward launches anything)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.clock import ManualClock
+    from repro_torch.serving.cnn_engine import CNNServeEngine, ImageRequest
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.scheduler import Failed, RetryPolicy
+
+    cfg, imgs = alex["cfg"], alex["imgs"]
+    clk = ManualClock()
+    eng = CNNServeEngine(
+        cfg, alex["params"], buckets=(1, 4, 16), device="cuda", clock=clk,
+        advance=clk.advance_to,
+        faults=FaultPlan(seed=1, transient_rate=1.0, transient_fails=1,
+                         poison_uids=(3,)),
+        retry=RetryPolicy(max_attempts=CHAOS_ATTEMPTS, backoff_base=0.001))
+    eng.warmup()
+    steps0 = eng.batcher.steps
+    build.reset_launches()
+    t0 = time.perf_counter()
+    for uid in range(len(imgs)):
+        eng.submit(ImageRequest(uid=uid, image=imgs[uid]))
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts()
+    forwards = eng.batcher.steps - steps0
+    q, s = eng.request_queue, eng.stats()
+    log(f"[chaos] alexnet/kom_int14 committed plan: {len(done)} done, "
+        f"{len(q.expired)} expired, failed {sorted(q.failed)}, injected "
+        f"{s['faults']['injected']}, retries {s['retries']}, bisections "
+        f"{s['bisections']}, quarantined {s['quarantined']}, {forwards} "
+        f"forwards, buckets {s['bucket_counts']}, health {eng.health}")
+    if not conserved(q):
+        raise SystemExit("[chaos] done + expired + failed != submitted")
+    if sorted(q.failed) != [3] or not isinstance(q.failed[3], Failed):
+        raise SystemExit(f"[chaos] failed {dict(q.failed)}, want uid 3")
+    if sorted(done) != [u for u in range(len(imgs)) if u != 3] \
+            or s["retries"] <= 0 or eng.health != "healthy":
+        raise SystemExit(f"[chaos] done {sorted(done)}, retries "
+                         f"{s['retries']}, health {eng.health}")
+    same_logits("chaos", done, {u: alex["committed"][u] for u in done})
+    check_launches("chaos", launches, plan_launches(cfg, eng.plan, forwards))
+    log(f"[chaos] on {card}: {len(done) / wall:.1f} img/s wall under chaos "
+        f"({len(done)} images in {wall:.3f}s), fault-free "
+        f"{alex['rate']:.1f} img/s wall (phase 6)")
     return launches
+
+
+def phase_oom(torch, card: str, alex: dict) -> dict:
+    """Phase 6d: a genuine CUDA OOM, three times.  AlexNet engines
+    (buckets 1/4/16, 16 requests) whose forward first allocates twice the
+    card's memory, so that the allocator raises ``torch.OutOfMemoryError``:
+    the ladder drops bucket 16, then bucket 4 (it sheds buckets while more
+    than one remains), then reroutes to the materialized im2col plan; the
+    next forwards succeed and every request is conserved.  On the
+    heuristic plan (im2col, implicit, Winograd: one scale plan) the
+    degraded logits equal the healthy ones bit for bit; on the committed
+    plan (systolic layers) they equal the fallback plan's forward through
+    the plain versions on the card bit for bit, and their distance from
+    the healthy logits is logged."""
+    import numpy as np
+
+    from repro_torch.core.planner import heuristic_plan
+    from repro_torch.kernels import build
+    from repro_torch.serving.clock import ManualClock
+    from repro_torch.serving.cnn_engine import CNNServeEngine, ImageRequest
+    from repro_torch.serving.scheduler import RetryPolicy, classify_failure
+
+    cfg, n = alex["cfg"], BATCH
+    imgs = alex["imgs"][:n]
+    total = torch.cuda.get_device_properties(0).total_memory
+    launches = {}
+    for label, plan in (("heuristic", heuristic_plan(cfg)),
+                        ("committed", None)):
+        tag = f"oom {label}"
+        clk = ManualClock()
+        eng = CNNServeEngine(cfg, alex["params"], buckets=(1, 4, 16),
+                             device="cuda", plan=plan, clock=clk,
+                             advance=clk.advance_to,
+                             retry=RetryPolicy(max_attempts=6,
+                                               backoff_base=0.001))
+        eng.warmup()
+        forward, left, raised = eng.forward, [3], []
+
+        def oom_first(x, forward=forward, left=left, raised=raised):
+            if left[0]:
+                left[0] -= 1
+                try:
+                    torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+                except torch.OutOfMemoryError as e:
+                    raised.append(e)
+                    raise
+                raise SystemExit(f"[{tag}] allocating twice the card's "
+                                 "memory did not raise")
+            return forward(x)
+
+        eng.forward = oom_first
+        steps0 = eng.batcher.steps
+        build.reset_launches()
+        for uid in range(n):
+            eng.submit(ImageRequest(uid=uid, image=imgs[uid]))
+        done = eng.run()
+        counts = build.launch_counts()
+        forwards = eng.batcher.steps - steps0
+        del eng.forward
+        s = eng.stats()
+        log(f"[{tag}] raised {[type(e).__name__ for e in raised]} "
+            f"({str(raised[0]).splitlines()[0][:90] if raised else '-'}), "
+            f"classified {[classify_failure(e) for e in raised]}; "
+            f"degrade_log {eng.degrade_log}, health {eng.health}, buckets "
+            f"{eng.buckets}, {len(done)} done, {forwards} forwards")
+        if len(raised) != 3 or {classify_failure(e) for e in raised} \
+                != {"oom"} or s["fault_counts"]["oom"] != 3:
+            raise SystemExit(f"[{tag}] want three OutOfMemoryErrors "
+                             f"classified oom: {raised}, {s['fault_counts']}")
+        if eng.degrade_log != ["dropped bucket 16", "dropped bucket 4",
+                               "rerouted plan to materialized im2col"] \
+                or eng.health != "degraded":
+            raise SystemExit(f"[{tag}] ladder {eng.degrade_log}")
+        if sorted(done) != list(range(n)) or not conserved(
+                eng.request_queue):
+            raise SystemExit(f"[{tag}] served {sorted(done)} of {n}")
+        check_launches(tag, counts, plan_launches(cfg, eng.plan, forwards))
+        for name, k in counts.items():
+            launches[name] = launches.get(name, 0) + k
+        got = np.stack([done[u].logits for u in range(n)])
+        with build.plain_versions():
+            plain = eng.forward(torch.from_numpy(imgs).cuda()).cpu().numpy()
+        if not np.array_equal(got, plain):
+            raise SystemExit(f"[{tag}] degraded logits != the fallback "
+                             "plan's plain-version forward (max diff "
+                             f"{np.abs(got - plain).max()})")
+        d = float(np.abs(got - alex[label][:n]).max())
+        log(f"[{tag}] degraded logits == the fallback plan's plain-version "
+            f"forward on the card, bitwise; max |degraded - healthy| {d}")
+        if label == "heuristic" and d != 0.0:
+            raise SystemExit(f"[{tag}] degraded logits != healthy ({d}) on "
+                             "a plan without systolic or pool layers")
+    return launches
+
+
+def phase_dispatch(torch, card: str, alex: dict, vgg: dict) -> dict:
+    """Phase 6e: the dispatcher on one card, one fake clock: AlexNet and
+    VGG16 (``kom_int14``, committed plans) and xlstm-125m (``kom_int14``,
+    4 slots).  A VGG16 ``batch`` backlog of 16 images first, then 16
+    AlexNet ``interactive`` images and 4 xlstm ``standard`` requests: the
+    dispatcher must step AlexNet until its queue drains; every model
+    conserves; each CNN's logits equal its solo engine's (phases 6 and
+    6b) bit for bit; the xlstm's greedy tokens equal a solo ServeEngine
+    run's, and again under ``FaultPlan(seed=2, transient_rate=0.5)`` with
+    retries; launches as the forwards and serve_steps imply."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.serving.clock import ManualClock
+    from repro_torch.serving.cnn_engine import CNNServeEngine, ImageRequest
+    from repro_torch.serving.dispatcher import MultiModelDispatcher
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.scheduler import RetryPolicy
+
+    clk = ManualClock()
+    xcfg = get_config(XLSTM, policy=MatmulPolicy.KOM_INT14)
+    xparams = lm_params(torch, XLSTM)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, xcfg.vocab_size, (int(rng.integers(3, 9)),)
+                            ).astype(np.int32) for _ in range(4)]
+
+    def xlstm_engine(**kw):
+        return ServeEngine(xcfg, xparams, slots=4, max_len=64,
+                           device="cuda", **kw)
+
+    def xlstm_tokens(eng):
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=200 + i, prompt=p, max_new_tokens=8))
+        return {u: r.out_tokens for u, r in eng.run().items()}
+
+    disp = MultiModelDispatcher()
+    engines = {"alexnet": CNNServeEngine(alex["cfg"], alex["params"],
+                                         buckets=(1, 4, 16), device="cuda",
+                                         clock=clk),
+               "vgg16": CNNServeEngine(vgg["cfg"], vgg["params"],
+                                       buckets=(1, 4, 8), device="cuda",
+                                       clock=clk),
+               XLSTM: xlstm_engine(clock=clk)}
+    for name, eng in engines.items():
+        if name != XLSTM:
+            eng.warmup()
+        disp.register(name, eng)
+    serve_steps, decode = [0], engines[XLSTM]._decode
+
+    def counted(*a):
+        serve_steps[0] += 1
+        return decode(*a)
+    engines[XLSTM]._decode = counted
+    steps0 = {n: engines[n].batcher.steps for n in ("alexnet", "vgg16")}
+    build.reset_launches()
+    t0 = time.perf_counter()
+    n_vgg = len(vgg["imgs"])
+    for uid in range(n_vgg):
+        disp.submit("vgg16", ImageRequest(uid=uid, image=vgg["imgs"][uid],
+                                          slo="batch"))
+    for i in range(BATCH):
+        disp.submit("alexnet", ImageRequest(uid=100 + i,
+                                            image=alex["imgs"][i],
+                                            slo="interactive"))
+    for i, p in enumerate(prompts):
+        disp.submit(XLSTM, Request(uid=200 + i, prompt=p, max_new_tokens=8,
+                                   slo="standard"))
+    order = []
+    while disp.has_work():
+        order.append(disp.step())
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    s = disp.stats()
+    runs = []
+    for name in order:
+        if runs and runs[-1][0] == name:
+            runs[-1][1] += 1
+        else:
+            runs.append([name, 1])
+    log(f"[dispatch] order: " + ", ".join(f"{n} x{k}" for n, k in runs))
+    log(f"[dispatch] steps per model {disp.steps_by_model}; fleet: "
+        f"{s['requests_done']} done, {s['requests_expired']} expired, "
+        f"{s['requests_failed']} failed, {s['retries']} retries, health "
+        f"{s['health']}; {wall:.2f}s wall on {card}")
+    n_alex = disp.steps_by_model["alexnet"]
+    if order[:n_alex] != ["alexnet"] * n_alex:
+        raise SystemExit("[dispatch] AlexNet's interactive queue did not "
+                         "drain first")
+    for name, eng in engines.items():
+        if not conserved(eng.request_queue) or eng.request_queue.failed \
+                or eng.request_queue.expired:
+            raise SystemExit(f"[dispatch] {name} lost or failed requests")
+    done = {n: engines[n].request_queue.done for n in engines}
+    same_logits("dispatch alexnet", done["alexnet"],
+                {100 + i: alex["committed"][i] for i in range(BATCH)})
+    same_logits("dispatch vgg16", done["vgg16"],
+                dict(enumerate(vgg["committed"])))
+    want = dict(plan_launches(alex["cfg"], engines["alexnet"].plan,
+                              engines["alexnet"].batcher.steps
+                              - steps0["alexnet"]))
+    for name, k in plan_launches(vgg["cfg"], engines["vgg16"].plan,
+                                 engines["vgg16"].batcher.steps
+                                 - steps0["vgg16"]).items():
+        want[name] = want.get(name, 0) + k
+    want["kom_matmul"] += serve_steps[0] * limb_gemms_per_step(xcfg)
+    check_launches("dispatch", counts, want)
+    tokens = {u: r.out_tokens for u, r in done[XLSTM].items()}
+    solo = xlstm_tokens(xlstm_engine())
+    log(f"[dispatch] xlstm tokens {tokens}; solo {solo}")
+    if tokens != solo:
+        raise SystemExit("[dispatch] xlstm tokens != a solo run's")
+    fclk = ManualClock()
+    chaos = xlstm_engine(clock=fclk, advance=fclk.advance_to,
+                         faults=FaultPlan(seed=2, transient_rate=0.5),
+                         retry=RetryPolicy(backoff_base=0.001))
+    got = xlstm_tokens(chaos)
+    cs = chaos.stats()
+    log(f"[dispatch] xlstm under FaultPlan(seed=2, transient_rate=0.5): "
+        f"injected {cs['faults']['injected']}, retries {cs['retries']}, "
+        f"bisections {cs['bisections']}, tokens == fault-free: "
+        f"{got == solo}")
+    if got != solo or cs["faults"]["injected"]["transient"] == 0 \
+            or not conserved(chaos.request_queue):
+        raise SystemExit("[dispatch] xlstm under transient faults: tokens "
+                         "differ, nothing injected, or a request lost")
+    n_img = len(done["alexnet"]) + len(done["vgg16"])
+    log(f"[dispatch] on {card}: {n_img} images and {len(tokens)} xlstm "
+        f"requests in {wall:.3f}s ({n_img / wall:.1f} img/s wall beside "
+        "the xlstm decode)")
+    return counts
+
+
+def phase_launcher(torch, card: str) -> dict:
+    """Phase 6f: the launcher in-process on the real clock: ``--arch
+    alexnet,vgg16 --policy kom_int14 --requests 8 --slo standard
+    --fault-plan transient=0.2,poison=0.05`` (full width, the launcher's
+    buckets 1/4/16) must return 0 with one fleet line.  The engines it
+    builds are kept, and each must show: every request conserved, none
+    expired, the failed uids exactly those the seeded plan poisons (typed
+    ``Failed``), every fault its batcher recorded one its injector
+    injected (so no kernel or wrapper error was retried away), health
+    ``healthy`` with nothing contained, the launches of its warmup (two
+    forwards per bucket) and served forwards as its plan implies, and
+    served logits equal to a fault-free forward of the same images bit
+    for bit."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
+    from repro_torch.serving.scheduler import Failed
+
+    spec, n_req = "transient=0.2,poison=0.05", 8
+    argv = ["--arch", "alexnet,vgg16", "--policy", "kom_int14",
+            "--requests", str(n_req), "--slo", "standard", "--fault-plan",
+            spec]
+    engines, build_engine = [], serve._build_engine
+
+    def kept(cfg, args, device):
+        engines.append(build_engine(cfg, args, device))
+        return engines[-1]
+
+    build.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    serve._build_engine = kept
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(argv)
+    finally:
+        serve._build_engine = build_engine
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[launcher] {line}")
+    fleet = [ln for ln in lines if ln.startswith("[serve] fleet:")]
+    log(f"[launcher] {' '.join(argv)}: rc {rc}, {wall:.2f}s with the "
+        f"build of both engines, on {card}")
+    if rc != 0 or len(fleet) != 1 or len(engines) != 2 \
+            or any("contained:" in ln for ln in lines):
+        raise SystemExit(f"[launcher] rc {rc}, fleet lines {fleet}, "
+                         f"{len(engines)} engines, output {lines}")
+    # the seeded plan's own poison decisions, independent of the engines
+    poisoned = FaultInjector(FaultPlan.parse(spec, seed=0)).is_poison
+    want, first = {}, 0
+    for eng in engines:
+        name, q, s = eng.cfg.name, eng.request_queue, eng.stats()
+        uids = range(first, first + n_req)   # the launcher's uid order
+        first += n_req
+        injected = s["faults"]["injected"]
+        recorded = sum(s["fault_counts"].values())
+        poison = [u for u in uids if poisoned(u)]
+        log(f"[launcher] {name}: {len(q.done)} done, {len(q.expired)} "
+            f"expired, failed {sorted(q.failed)} (the plan poisons "
+            f"{poison}), faults recorded "
+            f"{s['fault_counts']}, injected {injected}, retries "
+            f"{s['retries']}, bisections {s['bisections']}, health "
+            f"{eng.health}, {eng.batcher.steps} served forwards, buckets "
+            f"{s['bucket_counts']}")
+        if q.submitted_count != n_req or not conserved(q) or q.expired:
+            raise SystemExit(f"[launcher] {name}: {q.submitted_count} "
+                             f"submitted, {len(q.done)} done, "
+                             f"{len(q.expired)} expired, {len(q.failed)} "
+                             "failed")
+        if sorted(q.failed) != poison \
+                or not all(isinstance(f, Failed) for f in q.failed.values()):
+            raise SystemExit(f"[launcher] {name}: failed {dict(q.failed)} "
+                             "!= the uids the plan poisons")
+        if recorded != injected["transient"] + injected["poison"] \
+                + injected["oom"]:
+            raise SystemExit(f"[launcher] {name}: the batcher recorded "
+                             f"{s['fault_counts']} faults, the injector "
+                             f"injected {injected}")
+        if eng.health != "healthy" or eng.degrade_log:
+            raise SystemExit(f"[launcher] {name}: health {eng.health}, "
+                             f"degrade_log {eng.degrade_log}")
+        for k, v in plan_launches(eng.cfg, eng.plan, 2 * len(eng.buckets)
+                                  + eng.batcher.steps).items():
+            want[k] = want.get(k, 0) + v
+        done = sorted(q.done)
+        got = np.stack([q.done[u].logits for u in done])
+        x = torch.from_numpy(np.stack([q.done[u].image for u in done]))
+        free = eng.forward(x.cuda()).cpu().numpy()
+        if got.shape != (len(done), eng.cfg.n_classes) \
+                or not np.isfinite(got).all() or not np.array_equal(got,
+                                                                     free):
+            raise SystemExit(f"[launcher] {name}: served logits "
+                             f"{got.shape} differ from a fault-free "
+                             "forward of the same images")
+        log(f"[launcher] {name}: {len(done)} served logits equal a "
+            "fault-free forward of the same images, bitwise")
+    check_launches("launcher", counts, want)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2420,8 +2920,18 @@ def main() -> int:
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     phase_plan(torch, card)
-    for path in (phase_serve, phase_serve_vgg16):
-        add(path(torch, card))
+    counts, alex = phase_serve(torch, card)
+    add(counts)
+    counts, vgg = phase_serve_vgg16(torch, card)
+    add(counts)
+    t0 = time.perf_counter()
+    add(phase_chaos(torch, card, alex))
+    add(phase_oom(torch, card, alex))
+    add(phase_dispatch(torch, card, alex, vgg))
+    add(phase_launcher(torch, card))
+    log(f"[faults] phases 6c-6f took {time.perf_counter() - t0:.1f}s")
+    del alex, vgg
+    torch.cuda.empty_cache()
     params = vgg16_params(torch)
     counts, ref, ref_imgs = phase_serve_vgg16_systolic(torch, card, params)
     add(counts)
@@ -2457,7 +2967,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "raw_product_ms": s.get("raw_product_ms")})
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -179,18 +179,27 @@ def heuristic_plan(cfg, *, backend: str = "cuda") -> ExecutionPlan:
 def materialized_fallback_plan(plan: ExecutionPlan) -> ExecutionPlan:
     """Reroute every conv layer to the materialized im2col path.
 
-    The degraded-mode plan after OOM-shaped failures: the im2col path honors
-    every policy and, under the integer policies, gives the same integers
-    (per-patch or shared per-tile scales, one exact recombine) and the same
-    ``fma(raw, t, b)`` epilogue as the unfused engines, so for a plan
-    without pool fusions the degraded logits equal the healthy ones.  Pool
-    fusions are downgraded to ``bias_relu`` (the pool runs as its own
-    ``pool2d``).  Under a plan with them the degraded logits equal the
-    reference's degraded (materialized) forward, NOT necessarily the
-    healthy logits: a ``pool_quant`` plan's consumers read the handoff's
-    power-of-two cell quantization (the carve-out the reference
-    documents), and a pooled layer rounds ``max(fl(raw*t)) + b`` where the
-    materialized one rounds ``max(fma(raw, t, b))``.
+    The degraded-mode plan after OOM-shaped failures.  The im2col path
+    honors every policy and, under the integer policies, gives the same
+    integers as the implicit and Winograd engines (one shared plan of
+    per-patch or per-tile activation scales, one exact recombine) and the
+    same ``fma(raw, t, b)`` epilogue.  Pool fusions are downgraded to
+    ``bias_relu`` (the pool runs as its own ``pool2d``).  What the
+    degraded logits equal:
+
+    * the healthy plan's logits, bit for bit, only when ``plan`` holds no
+      ``systolic`` layer and no ``pool`` or ``pool_quant`` fusion;
+    * otherwise this plan's own forward, and not the healthy logits: the
+      systolic engine quantizes per sample, a ``pool_quant`` consumer reads
+      the handoff's power-of-two cell quantization (the carve-out the
+      reference documents), and a pooled layer rounds ``max(fl(raw*t)) +
+      b`` where the materialized one rounds ``max(fma(raw, t, b))``;
+    * every plan of the committed ``repro_torch/tuned/plans/cuda.json``
+      holds systolic layers, so it is in the second case.
+
+    The reference's docstring claims the first case for every plan but a
+    ``pool_quant`` one; its systolic engine quantizes per sample too, so
+    the claim does not hold there for a systolic layer either.
     """
     entries = tuple(dataclasses.replace(
         e, path="im2col", block=None, est_us=None, roofline_frac=None,

@@ -1,1 +1,2 @@
-"""Serving: the CNN image engine and the port's copy of the scheduler."""
+"""Serving: the CNN image and LM engines, the port's copies of the scheduler,
+the fault injector and the multi-model dispatcher."""

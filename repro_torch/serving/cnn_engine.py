@@ -5,7 +5,17 @@ The port of ``repro.serving.cnn_engine``:
 * **Continuous, SLO-aware admission** through the port's copy of the
   reference scheduler (:mod:`repro_torch.serving.scheduler`): EDF
   admission into a few batch buckets, zero-padded microbatches, typed
-  ``Expired``/``Failed`` results, retries.
+  ``Expired``/``Failed`` results, retries.  ``deadline``/``slo`` per
+  request, ``slo_budgets=`` per engine, and an injected ``clock=`` (with
+  ``advance=`` to move a fake or warped clock through retry backoff).
+* **Fault injection**: ``faults=`` (a :class:`~repro_torch.serving.faults.
+  FaultPlan` or :class:`~repro_torch.serving.faults.FaultInjector`) wraps
+  the forward the batcher steps, so transient, poison, OOM-shaped and
+  latency faults reach the retry, bisection, quarantine and degrade paths;
+  the batcher then runs on the injector's warped clock.
+* **Dispatcher protocol**: ``request_queue``, ``has_work()``,
+  ``urgency()`` and ``step()`` for
+  :class:`~repro_torch.serving.dispatcher.MultiModelDispatcher`.
 * **Quantize-once weights**: under the integer policies the float params
   become cached :class:`~repro_torch.core.substrate.QWeight` leaves once at
   build (``prequantize=None``/``True``); each step quantizes activations
@@ -27,16 +37,27 @@ The port of ``repro.serving.cnn_engine``:
   ``implicit``, ...), which excludes a plan; a fused plan (``pool``/``pool_quant`` entries, e.g. from
   ``explore(cfg, model_only=True, requant=True)``) runs the implicit
   kernel's pooled epilogue and its int16 handoff between layers.
-* **OOM degrade ladder**: drop the largest bucket, then reroute the plan to
-  :func:`~repro_torch.core.planner.materialized_fallback_plan`, then go
-  down with pending requests failed typed.  The degraded logits equal the
-  healthy ones for plans without pool fusions; the reroute downgrades pool
-  fusions, so under a ``pool``/``pool_quant`` plan they equal the
-  reference's degraded (materialized) forward instead.
+* **OOM degrade ladder**: an OOM-shaped failure (a real
+  ``torch.OutOfMemoryError`` included) drops the largest bucket, then
+  reroutes the plan to
+  :func:`~repro_torch.core.planner.materialized_fallback_plan`, then goes
+  down with pending requests failed typed.  What the degraded logits
+  equal:
+
+  - the healthy logits, bit for bit, only for a plan without ``systolic``,
+    ``pool`` or ``pool_quant`` layers (im2col, implicit and Winograd share
+    one activation-scale plan with the fallback);
+  - otherwise the fallback plan's own forward, bit for bit, and NOT the
+    healthy logits: the systolic engine quantizes per sample, a
+    ``pool_quant`` handoff per 4x4 cell, and a pooled layer rounds
+    ``max(fl(raw*t)) + b`` where the materialized one rounds
+    ``max(fma(raw, t, b))``;
+  - every plan of the committed ``repro_torch/tuned/plans/cuda.json`` is
+    in the second case (each holds systolic layers), so the engine's
+    default on the card degrades to different logits.
 
 PyTorch runs eagerly, so there is no compile step: each bucket shape is
-simply a forward.  Data parallelism over a mesh and fault injection are
-not ported yet.
+simply a forward.  Data parallelism over a mesh is not ported yet.
 """
 from __future__ import annotations
 
@@ -50,6 +71,7 @@ import torch
 from repro_torch.core.substrate import not_ported, validate_path_policy
 from repro_torch.device import resolve_device
 from repro_torch.models.cnn import CNNConfig, cnn_forward, cnn_quantize_params
+from repro_torch.serving.clock import with_faults
 from repro_torch.serving.scheduler import (EngineDownError,
                                            IncompleteRunError, Microbatcher,
                                            RetryPolicy)
@@ -81,13 +103,11 @@ class CNNServeEngine:
                  buckets: Sequence[int] = (1, 4, 16, 64), device=None,
                  plan=None, retry: Optional[RetryPolicy] = None, mesh=None,
                  faults=None, prequantize: Optional[bool] = None,
-                 tune: bool = False):
+                 tune: bool = False, slo_budgets: Optional[dict] = None,
+                 clock=None, advance=None):
         if mesh is not None:
             raise not_ported("CNNServeEngine(mesh=...)",
                              "Queue 1 item 10: distribution")
-        if faults is not None:
-            raise not_ported("CNNServeEngine(faults=...)",
-                             "Queue 1 item 7: fault injection")
         self.cfg = cfg
         self.device = resolve_device(device)
         if tune:
@@ -112,8 +132,14 @@ class CNNServeEngine:
         self.health = "healthy"
         self.degrade_log: List[str] = []
         self._fallback_plan_active = False
-        self.batcher = Microbatcher(buckets, retry=retry,
-                                    on_fault=self._on_fault)
+        # under faults the batcher runs on the injector's warped clock
+        self.faults, run_clock = with_faults(faults, clock)
+        kw = {} if run_clock is None else {"clock": run_clock}
+        self.batcher = Microbatcher(buckets, slo_budgets=slo_budgets,
+                                    retry=retry, advance=advance,
+                                    on_fault=self._on_fault, **kw)
+        self._serve_fn = (self.faults.wrap(self.run_batch)
+                          if self.faults is not None else self.run_batch)
 
     @property
     def buckets(self) -> tuple:
@@ -140,6 +166,18 @@ class CNNServeEngine:
     @property
     def failed(self):
         return self.batcher.queue.failed
+
+    @property
+    def request_queue(self):
+        """The shared scheduler queue (dispatcher protocol)."""
+        return self.batcher.queue
+
+    def has_work(self) -> bool:
+        return bool(len(self.batcher.queue))
+
+    def urgency(self) -> tuple:
+        """(earliest deadline, earliest submit) across pending requests."""
+        return self.batcher.queue.urgency()
 
     # -- health ---------------------------------------------------------------
 
@@ -198,7 +236,7 @@ class CNNServeEngine:
         """Serve one microbatch; returns the requests completed by it."""
         if self.health == "down":
             raise EngineDownError(f"{self.cfg.name} engine is down")
-        completed = self.batcher.step(self.run_batch)
+        completed = self.batcher.step(self._serve_fn)
         out = []
         for req, logits in completed:
             req.logits = logits
@@ -228,4 +266,6 @@ class CNNServeEngine:
         s["health"] = self.health
         s["degrade_log"] = list(self.degrade_log)
         s["device"] = str(self.device)
+        if self.faults is not None:
+            s["faults"] = self.faults.stats()
         return s

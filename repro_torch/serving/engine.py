@@ -15,11 +15,18 @@ The port of ``repro.serving.engine``:
 * integer policies quantize the matmul weights ONCE at build
   (:func:`~repro_torch.serving.weight_quant.quantize_params_inline`);
 * retries with backoff and bisection, and the OOM degrade ladder (halve
-  the admission slot cap, then go down with requests failed typed).
+  the admission slot cap, then go down with requests failed typed);
+* fault injection: ``faults=`` (a :class:`~repro_torch.serving.faults.
+  FaultPlan` or :class:`~repro_torch.serving.faults.FaultInjector`) is
+  checked before every decode call and its latency draw taken after it;
+  the queue then runs on the injector's warped clock.  The cache is only
+  committed on success, so a retried request's greedy tokens equal a
+  fault-free run's;
+* the dispatcher protocol (``request_queue``, ``has_work()``,
+  ``urgency()``, ``step()``).
 
 Runs on the GPU unless ``device="cpu"``.  The decode step is
-``transformer.serve_step``, eagerly (no ``jit``).  Fault injection
-(``faults=``) is not ported yet.
+``transformer.serve_step``, eagerly (no ``jit``).
 """
 from __future__ import annotations
 
@@ -29,10 +36,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.substrate import not_ported, policy_int_spec
+from repro_torch.core.substrate import policy_int_spec
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.clock import with_faults
 from repro_torch.serving.scheduler import (EngineDownError, IncompleteRunError,
                                            RequestQueue, RetryPolicy,
                                            classify_failure, wait_until)
@@ -57,9 +65,6 @@ class ServeEngine:
                  slo_budgets: Optional[dict] = None, clock=None,
                  retry: Optional[RetryPolicy] = None,
                  faults=None, advance=None, device=None):
-        if faults is not None:
-            raise not_ported("ServeEngine(faults=...)",
-                             "Queue 1 item 7: fault injection")
         if cfg.family in ("encdec",):
             raise NotImplementedError("engine serves decoder-only families")
         self.cfg = cfg
@@ -89,7 +94,9 @@ class ServeEngine:
         self.bisections = 0
         self.quarantined = 0
         self.fault_counts: Dict[str, int] = {"transient": 0, "oom": 0}
-        kw = {} if clock is None else {"clock": clock}
+        # under faults the queue runs on the injector's warped clock
+        self.faults, run_clock = with_faults(faults, clock)
+        kw = {} if run_clock is None else {"clock": run_clock}
         self._rq = RequestQueue(slo_budgets=slo_budgets, **kw)
         self._rng = np.random.default_rng(rng_seed)
 
@@ -236,7 +243,11 @@ class ServeEngine:
             while True:
                 # retry-safe: the cache is only committed on success
                 try:
+                    if self.faults is not None:
+                        self.faults.check((req.uid,))
                     _, cache = self._decode(tok, int(self.pos[slot]), mask)
+                    if self.faults is not None:
+                        self.faults.lag()
                 except Exception as exc:
                     kind = self._record_fault(exc, (req.uid,))
                     fails += 1
@@ -309,8 +320,12 @@ class ServeEngine:
             for s in slot_ids:
                 t[s, 0] = tok[s, 0]
             try:
+                if self.faults is not None:
+                    self.faults.check(uids)
                 logits, cache = self._decode(t, pos, self._mask(slot_ids))
                 logits = logits.reshape(self.slots, -1).float().cpu().numpy()
+                if self.faults is not None:
+                    self.faults.lag()
             except Exception as exc:
                 kind = self._record_fault(exc, uids)
                 fails += 1
@@ -368,7 +383,7 @@ class ServeEngine:
 
     def stats(self) -> dict:
         """Request/resilience roll-up (the CNN engine's stats analogue)."""
-        return {
+        s = {
             "requests_done": len(self._rq.done),
             "requests_expired": len(self._rq.expired),
             "requests_failed": len(self._rq.failed),
@@ -382,3 +397,6 @@ class ServeEngine:
             "slot_cap": self._slot_cap,
             "device": str(self.device),
         }
+        if self.faults is not None:
+            s["faults"] = self.faults.stats()
+        return s

@@ -475,10 +475,20 @@ def test_interleaved_batched_decode_matches_single_slot(arch, policy):
 
 
 def test_engine_refuses_faults_and_a_missing_gpu():
+    """A FaultPlan is accepted now (fault injection is ported: the engine
+    wraps it in an injector on its clock); a missing GPU is still refused
+    unless the caller asks for the CPU."""
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
     _, cfg = _cfgs("granite-3-2b", "fp32")
     tp = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        ServeEngine(cfg, tp, device="cpu", faults=object())
+    eng = ServeEngine(cfg, tp, device="cpu", faults=FaultPlan(seed=3),
+                      clock=lambda: 7.0)
+    assert isinstance(eng.faults, FaultInjector)
+    assert eng.faults.plan == FaultPlan(seed=3)
+    assert eng.request_queue.now() == 7.0
+    assert eng.stats()["faults"] == {
+        "seed": 3, "injected": {"transient": 0, "poison": 0, "oom": 0,
+                                "latency": 0}, "clock_skew_s": 0.0}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(cfg, tp)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Proof on an NVIDIA GPU that the port's AlexNet, VGG16, granite-3-2b and
-xlstm-125m paths run.
+"""Proof on an NVIDIA GPU that the port's AlexNet, VGG16, granite-3-2b,
+xlstm-125m and olmoe-1b-7b paths run.
 
     python3 chip_smoke.py
 
@@ -163,9 +163,10 @@ Phases, each fatal on failure:
     forward, prefill tokens/s, a profile -- and under ``fp32`` (TF32 off)
     the logits within PREFILL_TOL_FP32 of the same forward inside
     ``build.plain_versions()``, then timed (prefill tokens/s);
-12. the limb GEMM at granite-3-2b's eight decode shapes at m = 1, 4 and
-    16, exact against its plain version, with the K split its plan chose,
-    eager and CUDA-graph device times, and the per-serve_step totals;
+12. the limb GEMM at granite-3-2b's decode shapes (``limb_gemm_shapes``:
+    one row per distinct (k, n)) at m = 1, 4 and 16, exact against its
+    plain version, with the K split its plan chose, eager and CUDA-graph
+    device times beside ``torch._int_mm``, and the per-serve_step totals;
     serve full-width granite-3-2b through ``ServeEngine`` (slots 4,
     max_len 512, 8 requests by the launcher's prompt rule, max_new 12)
     under ``native_bf16`` and ``kom_int14``: all 8 done, decode tokens/s,
@@ -205,10 +206,35 @@ Phases, each fatal on failure:
     weights (``kom_q_dot`` per tensor) within the measured
     ``analysis/kom_float_weights.FLOAT_WEIGHTS_TOL``, which the card's
     ``base_bits=6`` forward must miss;
-19. print the card line, a ``kernels`` JSON line (launches: the serving
-    runs, phases 6c-6f, the fp32 yardstick forward, the granite prefill
-    forward and the two ops' own runs, each counted from 0; ``library_ms``
-    one PyTorch call computing the same function, else null;
+19. the flash-attention kernel at one full-width olmoe-1b-7b prefill
+    layer (b 4, hq = hkv = 16, sq = skv = 2048, dh 128, causal) in f32 and
+    bf16, as phase 10 (tolerances, mutant, SDPA, bound);
+20. full-width olmoe-1b-7b (16 layers, 64 experts, top-8, random weights,
+    seed 0): the prefill step (flash kernel on) on 4 x 2048 tokens under
+    ``native_bf16`` -- 16 flash-attention launches, tokens/s, a profile
+    with the routing, dispatch, expert products and combine as ranges --
+    and under ``fp32`` (TF32 off) the plain-version forward with every
+    layer's routing recorded, then the kernel forward with ``moe_route``
+    pinned to that routing within PREFILL_TOL_FP32 of max |logit| (an ulp
+    can flip a top-8 choice, which moves a token's output by O(1)), and an
+    unpinned kernel forward whose flipped (token, layer) routings are
+    counted, a finding and not a limit; then layer 0's MoE FFN on 4 x 2048
+    tokens in f32, card against CPU: the same experts (or CPU near ties),
+    positions and drops, y and aux within MOE_TOL_FFN_F32 / MOE_TOL_AUX,
+    and within them again with the card's routing pinned to the CPU's;
+21. the limb GEMM at olmoe-1b-7b's decode shapes as phase 12 (q/k/v/o
+    2048 x 2048, 64 per serve_step, and the untied head 2048 x 50432);
+    serve full-width olmoe-1b-7b as phase 12 (slots 4: each decode
+    group's capacity is 4 per expert, so nothing is dropped and batched ==
+    solo holds; 65 limb-GEMM launches per serve_step under ``kom_int14``:
+    q, k, v, o per layer and the head -- the router and the experts run
+    in the compute dtype, as in the reference);
+22. reduced olmoe-1b-7b as phase 13, with every (token, layer) routed
+    alike on the card and the CPU;
+23. print the card line, a ``kernels`` JSON line (launches: the serving
+    runs, phases 6c-6f, the fp32 yardstick forward, the granite and olmoe
+    prefill forwards and the two ops' own runs, each counted from 0;
+    ``library_ms`` one PyTorch call computing the same function, else null;
     ``raw_product_ms`` the implicit and Winograd convs' raw integer
     product, else null) and, last, ``{"ok": true, "device": ...}``.
 
@@ -240,6 +266,16 @@ ATTN_TOL_BF16 = 2e-2
 #: Full-width granite fp32 prefill, flash kernel vs plain version, of max
 #: |logit|: 40 layers carry the kernels' f32 reordering through the stack.
 PREFILL_TOL_FP32 = 1e-4
+#: One full-width MoE layer, card vs CPU in f32: ``tests/test_torch_moe.py``'s
+#: TOL_FFN_F32 of max |y| (the expert products summed in another order)
+#: and TOL_AUX of aux (the same f32 probabilities averaged).
+MOE_TOL_FFN_F32 = 1e-5
+MOE_TOL_AUX = 1e-6
+#: A (token, rank) routed to different experts on the card and the CPU
+#: must be a near tie: the two experts' CPU probabilities this close (a
+#: 1e-6 logit difference moves a probability of ~0.1 by ~1e-7; a wrong
+#: choice misses by the gap between ranks, ~1e-2).
+ROUTE_TIE_EPS = 1e-6
 #: Reduced granite, card vs CPU, of max |logit|: fp32 (sums in another
 #: order), kom_int14 (an ulp can move a 14-bit quantization level).
 REDUCED_TOL_FP32 = 1e-5
@@ -2298,37 +2334,61 @@ def phase_compare_attention(torch) -> tuple:
     return summary, launches
 
 
-#: granite-3-2b's projections (k, n) with their count per serve_step: q,
-#: k, v, o, gate, up, down in each of 40 layers, then the tied head.
-GRANITE_GEMMS = (("q", (2048, 2048), 40), ("k", (2048, 512), 40),
-                 ("v", (2048, 512), 40), ("o", (2048, 2048), 40),
-                 ("gate", (2048, 8192), 40), ("up", (2048, 8192), 40),
-                 ("down", (8192, 2048), 40), ("head", (2048, 49408), 1))
+def limb_gemm_shapes(cfg) -> tuple:
+    """The limb GEMMs of one dense or MoE forward or serve_step under
+    kom_int14, as ``(label, (k, n), count)``: q, k, v and o in each layer
+    (dense: and the MLP's projections; MoE: the router and the experts are
+    not on the limb substrate, as in the reference), then the head (tied
+    or untied, ``padded_vocab`` wide).  Projections of one shape share a
+    row, e.g. granite-3-2b's ``q/o`` (2048, 2048) x 80."""
+    d, dq = cfg.d_model, cfg.n_heads * cfg.head_dim
+    dkv = cfg.n_kv_heads * cfg.head_dim
+    rows = [("q", (d, dq)), ("k", (d, dkv)), ("v", (d, dkv)), ("o", (dq, d))]
+    if cfg.family == "dense":
+        rows += [("gate", (d, cfg.d_ff))] if cfg.mlp == "swiglu" else []
+        rows += [("up", (d, cfg.d_ff)), ("down", (cfg.d_ff, d))]
+    by_shape = {}
+    for label, kn in rows:
+        by_shape.setdefault(kn, []).append(label)
+    return tuple(("/".join(labels), kn, len(labels) * cfg.n_layers)
+                 for kn, labels in by_shape.items()) + (
+        ("head", (d, cfg.padded_vocab), 1),)
+
+
+def limb_gemm_work(m: int, k: int, n: int) -> tuple[float, float]:
+    """(int8 operations, bytes) of one limb GEMM at (m, k) x (k, n): three
+    int8 products of the 7-bit limbs; int16 operands read once, the f32
+    row and column scales read once, the f32 output written once."""
+    return 2.0 * m * k * n * 3, 2 * (m * k + k * n) + 4 * (m + n + m * n)
 
 
 #: The decode GEMM's rows: one slot, the served 4 slots, a full m16 tile.
 DECODE_ROWS = (1, 4, 16)
 
 
-def phase_compare_lm_gemm(torch) -> dict:
-    """Phase 10b: the limb GEMM at granite-3-2b's decode shapes under
+def phase_compare_lm_gemm(torch, arch: str = "granite-3-2b") -> dict:
+    """Phase 10b (granite-3-2b) and 21a (olmoe-1b-7b): the limb GEMM at
+    each of ``arch``'s decode shapes (:func:`limb_gemm_shapes`) under
     kom_int14 at m = 1, 4 (the served slots) and 16: exact against its
     plain version, the K split of ``kom_split_k`` printed beside each
     shape, timed eagerly (the wrapper's Python dispatch included) and as
     device time replayed from a CUDA graph, beside its three int8 passes
     through ``torch._int_mm``; the per-serve_step totals weight each shape
     by its count.  Returns the m = 4 totals."""
+    from repro_torch.configs import get_config
     from repro_torch.core.substrate import kom_qmax
     from repro_torch.kernels import build
     from repro_torch.kernels.kom_matmul import kom_matmul_int, kom_split_k
 
+    shapes = limb_gemm_shapes(get_config(arch))
+    calls = sum(count for _, _, count in shapes)
     gen = torch.Generator().manual_seed(5)
     qmax = kom_qmax(7)
     served = None
     for m in DECODE_ROWS:
         tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0,
                "library_ms": 0.0, "bound_ms": 0.0}
-        for label, (k, n), count in GRANITE_GEMMS:
+        for label, (k, n), count in shapes:
             a = torch.randint(-qmax, qmax + 1, (m, k), generator=gen).to(
                 torch.int16).cuda()
             b = torch.randint(-qmax, qmax + 1, (k, n), generator=gen).to(
@@ -2338,28 +2398,28 @@ def phase_compare_lm_gemm(torch) -> dict:
             run = lambda a=a, b=b, rs=rs, cs=cs: kom_matmul_int(
                 a, b, variant="karatsuba", base_bits=7, row_scale=rs,
                 col_scale=cs)
-            ops = 2.0 * m * k * n * 3
-            nbytes = 2 * (m * k + k * n) + 4 * (m + n + m * n)
+            ops, nbytes = limb_gemm_work(m, k, n)
             plan = kom_split_k(m, k, n)
-            log(f"[compare] kom_matmul granite {label} m={m}: split "
-                f"{plan['splits']} x {plan['group_k']} K entries, "
-                f"{plan['m_tile']}-row tile, {plan['blocks']} blocks")
+            what = f"kom_matmul {arch} {label} ({k}x{n}) m={m}"
+            log(f"[compare] {what}: split {plan['splits']} x "
+                f"{plan['group_k']} K entries, {plan['m_tile']}-row tile, "
+                f"{plan['blocks']} blocks")
             lib_ms = int_mm_passes_ms(torch, a, b, "karatsuba", 7)
             err, ms, plain_ms = compare_call(
                 torch, build, "kom_int14", "kom_matmul",
-                f"granite {label} m{m}", run, ops, nbytes, lib_ms)
+                f"{arch} {label} m{m}", run, ops, nbytes, lib_ms)
             graph_ms = cuda_graph_ms(run, iters=20)
-            log(f"[compare] kom_matmul granite {label} m={m}: device time "
-                f"from a CUDA graph {graph_ms:.4f} ms")
+            log(f"[compare] {what}: device time from a CUDA graph "
+                f"{graph_ms:.4f} ms")
             b_ms, _ = bound_ms(ops, nbytes, "int8")
             for key, v in (("ms", ms), ("graph_ms", graph_ms),
                            ("plain_ms", plain_ms), ("library_ms", lib_ms),
                            ("bound_ms", b_ms)):
                 tot[key] = None if v is None or tot[key] is None \
                     else tot[key] + count * v
-        log(f"[compare] kom_matmul per granite serve_step (281 calls, m = "
-            f"{m}): " + ", ".join(f"{k} {v if v is None else round(v, 4)}"
-                                  for k, v in tot.items()))
+        log(f"[compare] kom_matmul per {arch} serve_step ({calls} calls, "
+            f"m = {m}): " + ", ".join(f"{k} {v if v is None else round(v, 4)}"
+                                      for k, v in tot.items()))
         if m == 4:
             served = tot
     return served
@@ -2389,16 +2449,19 @@ def _leaves(tree):
         yield tree
 
 
-def phase_prefill(torch, card: str, params) -> dict:
-    """Phase 11: the prefill step with the flash kernel, batch 4 x 2048."""
+def prefill_bf16(torch, card: str, params, arch: str, ranges=None):
+    """The ``native_bf16`` prefill step of ``arch`` with the flash kernel
+    on 4 x 2048 tokens: one flash launch per layer (counted from 0 around
+    one forward), finite logits, tokens/s over 3 forwards and a profile
+    (``ranges``: see :func:`profile_step`).  Returns (cfg, batch, the
+    launches)."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.precision import MatmulPolicy
     from repro_torch.kernels import build
     from repro_torch.launch.step_fns import make_prefill_step
 
-    cfg = get_config("granite-3-2b", use_flash_kernel=True)
+    cfg = get_config(arch, use_flash_kernel=True)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 2048)).astype(np.int64)).cuda()
     batch = {"tokens": tokens}
@@ -2409,7 +2472,8 @@ def phase_prefill(torch, card: str, params) -> dict:
     logits = step(params, batch)
     torch.cuda.synchronize()
     launches = build.launch_counts()
-    check_launches("prefill", launches, {"flash_attention": cfg.n_layers})
+    check_launches(f"prefill {arch}", launches,
+                   {"flash_attention": cfg.n_layers})
     if logits.shape != (4, 2048, cfg.padded_vocab) or \
             not torch.isfinite(logits).all():
         raise SystemExit(f"[prefill] bad logits {tuple(logits.shape)}")
@@ -2420,11 +2484,21 @@ def phase_prefill(torch, card: str, params) -> dict:
         step(params, batch)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n_it
-    log(f"[prefill] granite-3-2b/native_bf16 flash on {card}: "
+    log(f"[prefill] {arch}/native_bf16 flash on {card}: "
         f"{1e3 * dt:.1f} ms per 4x2048 prefill, {4 * 2048 / dt:.0f} "
         "tokens/s")
     profile_step(torch, lambda: step(params, batch).sum().item(),
-                 "one 4x2048 native_bf16 prefill step")
+                 "one 4x2048 native_bf16 prefill step", ranges=ranges)
+    return cfg, batch, launches
+
+
+def phase_prefill(torch, card: str, params) -> dict:
+    """Phase 11: the prefill step with the flash kernel, batch 4 x 2048."""
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch.step_fns import make_prefill_step
+
+    cfg, batch, launches = prefill_bf16(torch, card, params, "granite-3-2b")
     f32 = cfg.replace(policy=MatmulPolicy.FP32, compute_dtype="float32")
     step32 = make_prefill_step(f32)
     got = step32(params, batch)
@@ -2436,6 +2510,7 @@ def phase_prefill(torch, card: str, params) -> dict:
     if not rel <= PREFILL_TOL_FP32:
         raise SystemExit(f"[prefill] fp32 logits off by {rel}")
     del got, want
+    n_it = 3
     t0 = time.perf_counter()
     for _ in range(n_it):
         step32(params, batch)
@@ -2477,14 +2552,21 @@ class _Recorder:
 
 def limb_gemms_per_step(cfg) -> int:
     """Limb-GEMM launches of one forward or serve_step under kom_int14:
-    dense -- 7 projections per layer; xLSTM -- 6 prequantized projections
-    plus ``w_if`` (``kom_q_dot``) per mLSTM, ``w_in`` and ``w_down`` per
-    sLSTM; then the head."""
+    dense and MoE -- :func:`limb_gemm_shapes`; xLSTM -- 6 prequantized
+    projections plus ``w_if`` (``kom_q_dot``) per mLSTM, ``w_in`` and
+    ``w_down`` per sLSTM; then the head."""
     if cfg.family == "ssm":
         n_m = cfg.xlstm_group.count("m") * cfg.n_xlstm_groups
         n_s = cfg.xlstm_group.count("s") * cfg.n_xlstm_groups
         return 7 * n_m + 2 * n_s + 1
-    return 7 * cfg.n_layers + 1
+    return sum(count for _, _, count in limb_gemm_shapes(cfg))
+
+
+def limb_gemm_step_bound_ms(cfg, m: int) -> float:
+    """The bound (``bound_ms`` of :func:`limb_gemm_work`) of one dense or
+    MoE serve_step's limb GEMMs at ``m`` rows."""
+    return sum(count * bound_ms(*limb_gemm_work(m, k, n), "int8")[0]
+               for _, (k, n), count in limb_gemm_shapes(cfg))
 
 
 def phase_serve_lm(torch, card: str, params, policy: str,
@@ -2501,6 +2583,16 @@ def phase_serve_lm(torch, card: str, params, policy: str,
 
     tag = f"serve_lm {arch} {policy}"
     cfg = get_config(arch, policy=MatmulPolicy(policy))
+    if cfg.family == "moe":
+        # decode routes every slot row as one group: batched == solo only
+        # while no expert can overflow (slots <= cap)
+        from repro_torch.models.moe import moe_capacity
+        cap = moe_capacity(4, cfg.moe_top_k, cfg.moe_num_experts,
+                           cfg.moe_capacity_factor)
+        log(f"[{tag}] decode group of 4 slot rows: capacity {cap} per "
+            "expert, so nothing is dropped")
+        if cap < 4:
+            raise SystemExit(f"[{tag}] capacity {cap} < 4 slots")
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, slots=4, max_len=512, device="cuda")
     torch.cuda.synchronize()
@@ -2536,7 +2628,10 @@ def phase_serve_lm(torch, card: str, params, policy: str,
     n_tok = sum(len(done[u].out_tokens) for u in done)
     st = np.array(rec.step_s)
     if policy == "kom_int14":
-        log(f"[{tag}] {per_step} limb-GEMM launches per serve_step")
+        log(f"[{tag}] {per_step} limb-GEMM launches per serve_step" + (
+            "" if cfg.family == "ssm" else
+            f", bound {limb_gemm_step_bound_ms(cfg, 4):.4f} ms at 4 rows "
+            "(their device time: the profile below)"))
     log(f"[{tag}] {arch}/{policy} on {card}: 8/8 requests, {n_tok} "
         f"tokens in {wall:.2f}s ({n_tok / wall:.1f} decode tok/s), "
         f"{n_decode[0]} serve_steps, {len(st)} engine steps: p50 "
@@ -2565,13 +2660,14 @@ def phase_serve_lm(torch, card: str, params, policy: str,
 
 
 def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
-    """Phases 13 and 18: reduced ``arch`` (granite: flash kernel on) under
-    fp32 and kom_int14 (f32 compute, weights quantized once as the engine
-    does): the forward and four decode steps on the card against the plain
-    versions on the CPU (which the CPU tests hold against the JAX
-    reference); for the xLSTM also kom_int14 on float weights (both
-    operands quantized per tensor, ``kom_q_dot``) within FLOAT_WEIGHTS_TOL,
-    with the card's ``base_bits=6`` forward required to miss it."""
+    """Phases 13, 18 and 22: reduced ``arch`` (granite, olmoe: flash kernel
+    on) under fp32 and kom_int14 (f32 compute, weights quantized once as
+    the engine does): the forward and four decode steps on the card
+    against the plain versions on the CPU (which the CPU tests hold against
+    the JAX reference); for MoE every (token, layer) routed alike on both
+    first; for the xLSTM also kom_int14 on float weights (both operands
+    quantized per tensor, ``kom_q_dot``) within FLOAT_WEIGHTS_TOL, with
+    the card's ``base_bits=6`` forward required to miss it."""
     from repro_torch.analysis.kom_float_weights import (FLOAT_WEIGHTS_TOL,
                                                         base_bits)
     from repro_torch.configs import get_config, reduced
@@ -2593,24 +2689,39 @@ def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
         if policy == "kom_int14" and not float_weights:
             params = quantize_params_inline(params)
         gp = transformer.params_to(params, "cuda")
-        tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+        # MoE: the forward's tokens fill whole routing groups (64)
+        seq = 32 if cfg.family == "moe" else 40
+        tokens = torch.randint(0, cfg.vocab_size, (2, seq),
                                generator=torch.Generator().manual_seed(3))
-        want, _ = transformer.forward(params, cfg, {"tokens": tokens})
+        what = policy + (" float weights" if float_weights else "")
+        cpu_r, card_r = moe_routing(), moe_routing()
+        with cpu_r:
+            want, _ = transformer.forward(params, cfg, {"tokens": tokens})
         build.reset_launches()
-        got, _ = transformer.forward(gp, cfg, {"tokens": tokens.cuda()})
+        with card_r:
+            got, _ = transformer.forward(gp, cfg, {"tokens": tokens.cuda()})
         launches = build.launch_counts()
         rel = float((got.cpu() - want).abs().max() / want.abs().max())
         cache = transformer.init_cache(cfg, 2, 8, device="cpu")
         gcache = transformer.init_cache(cfg, 2, 8, device="cuda")
         drel = 0.0
         for t in range(4):
-            w, cache = transformer.serve_step(params, cfg, cache,
-                                              tokens[:, t:t + 1], t)
-            g, gcache = transformer.serve_step(gp, cfg, gcache,
-                                               tokens[:, t:t + 1].cuda(), t)
+            with cpu_r:
+                w, cache = transformer.serve_step(params, cfg, cache,
+                                                  tokens[:, t:t + 1], t)
+            with card_r:
+                g, gcache = transformer.serve_step(
+                    gp, cfg, gcache, tokens[:, t:t + 1].cuda(), t)
             drel = max(drel, float((g.cpu() - w).abs().max()
                                    / w.abs().max()))
-        what = policy + (" float weights" if float_weights else "")
+        if cfg.family == "moe":
+            flips, total = routing_flips(card_r.seen, cpu_r.seen)
+            log(f"[reduced_lm] {arch} (reduced) {what}: card vs CPU "
+                f"routing: {flips} of {total} (token, layer) pairs differ "
+                f"over the forward and 4 decode steps")
+            if flips or len(card_r.seen) != len(cpu_r.seen):
+                raise SystemExit(f"[reduced_lm] {what}: routing differs "
+                                 f"({flips} of {total})")
         miss = None
         if float_weights:
             with base_bits(6):
@@ -2630,6 +2741,188 @@ def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
                 (miss is not None and not miss > tol):
             raise SystemExit(f"[reduced_lm] {what}: {rel}, {drel}, "
                              f"{launches}, control {miss}")
+
+# ---------------------------------------------------------------------------
+# Phases 19-22: the MoE family, full-width olmoe-1b-7b.
+# ---------------------------------------------------------------------------
+
+OLMOE = "olmoe-1b-7b"
+MOE_MOD = "repro_torch.models.moe"
+#: The profiled MoE ranges: routing, dispatch, the expert products and the
+#: combine (the module-level functions of ``models/moe.py``).
+MOE_RANGES = (("moe_route", "moe::route"), ("dispatch", "moe::dispatch"),
+              ("experts", "moe::experts"), ("combine", "moe::combine"))
+
+
+class moe_routing:
+    """Inside the block (which may be entered again) ``models.moe.
+    moe_route`` appends each call's outputs ``(probs, gate, idx, pos,
+    keep)`` to ``seen``; with ``pin`` (a list of such outputs) it computes
+    nothing and returns ``pin``'s entries in call order."""
+
+    def __init__(self, pin=None):
+        self.pin, self.seen = pin, []
+
+    def __enter__(self):
+        import importlib
+        self.mod = importlib.import_module(MOE_MOD)
+        self.orig = self.mod.moe_route
+
+        def route(params, xg, cfg):
+            out = self.orig(params, xg, cfg) if self.pin is None \
+                else self.pin[len(self.seen)]
+            self.seen.append(out)
+            return out
+        self.mod.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_route = self.orig
+
+
+def routing_flips(got, want) -> tuple:
+    """(the (token, layer) pairs whose chosen experts -- as a set -- or
+    whose kept experts differ between two recorded routings, all pairs)."""
+    flips = total = 0
+    for a, b in zip(got, want):
+        (ia, oa), (ib, ob) = a[2].cpu().sort(-1), b[2].cpu().sort(-1)
+        ka, kb = a[4].cpu().gather(-1, oa), b[4].cpu().gather(-1, ob)
+        flips += int(((ia != ib) | (ka != kb)).any(-1).sum())
+        total += ia.shape[0] * ia.shape[1]
+    return flips, total
+
+
+def phase_compare_attention_olmoe(torch) -> None:
+    """Phase 19: the flash-attention kernel at one full-width olmoe-1b-7b
+    prefill layer (b 4, hq = hkv = 16, sq = skv = 2048, dh 128, causal) in
+    f32 and bf16 against its plain version (mutant required to miss), timed
+    beside SDPA and the roofline bound (:func:`attention_case`)."""
+    from repro_torch.kernels import build
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((4, 16, 2048, 128), generator=gen,
+                           device="cuda") for _ in range(3))
+    attention_case(torch, build, {}, "olmoe prefill 4x2048", q, k, v)
+    attention_case(torch, build, {}, "olmoe prefill 4x2048",
+                   *(t.bfloat16() for t in (q, k, v)))
+
+
+def phase_prefill_moe(torch, card: str, params) -> dict:
+    """Phase 20: the olmoe-1b-7b prefill step (``use_flash_kernel=True``)
+    on 4 x 2048 tokens under native_bf16 -- 16 flash launches, tokens/s, a
+    profile with the MoE ranges -- then under fp32 (TF32 off): the
+    plain-version forward with every layer's routing recorded, the kernel
+    forward with ``moe_route`` pinned to it within PREFILL_TOL_FP32 of max
+    |logit|, and an unpinned kernel forward whose flipped (token, layer)
+    routings are counted (a finding, not a limit)."""
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch.step_fns import make_prefill_step
+
+    cfg, batch, launches = prefill_bf16(
+        torch, card, params, OLMOE,
+        ranges=(tuple(label for _, label in MOE_RANGES),
+                annotated((MOE_MOD, name, label)
+                          for name, label in MOE_RANGES)))
+    step32 = make_prefill_step(cfg.replace(policy=MatmulPolicy.FP32,
+                                           compute_dtype="float32"))
+    with build.plain_versions(), moe_routing() as plain:
+        want = step32(params, batch)
+    with moe_routing(pin=plain.seen):
+        got = step32(params, batch)
+    rel = float((got - want).abs().max() / want.abs().max())
+    del got
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe_routing() as free:
+        got = step32(params, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    free_rel = float((got - want).abs().max() / want.abs().max())
+    flips, total = routing_flips(free.seen, plain.seen)
+    log(f"[olmoe] fp32 (TF32 off), routing pinned to the plain-version "
+        f"forward's: flash kernel vs plain-version forward max rel err "
+        f"{rel:.3e} (tol {PREFILL_TOL_FP32})")
+    log(f"[olmoe] fp32 unpinned: {flips} of {total} (token, layer) "
+        f"routings differ from the plain-version forward's, logits "
+        f"{free_rel:.3e} of max|logit| away (a finding, no limit); "
+        f"{1e3 * dt:.1f} ms per 4x2048 prefill, {4 * 2048 / dt:.0f} "
+        "tokens/s")
+    if not rel <= PREFILL_TOL_FP32 or not torch.isfinite(got).all():
+        raise SystemExit(f"[olmoe] fp32 logits off by {rel}")
+    del got, want, plain, free
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_ffn_card_vs_cpu(torch, params) -> None:
+    """Phase 20b: one full-width olmoe-1b-7b MoE layer (layer 0's params:
+    64 experts, top-8, groups of 512, capacity 84 per expert) on 4 x 2048
+    random tokens in f32 (TF32 off), the card against the CPU.  Every
+    (token, rank)'s expert must be equal, or a near tie on the CPU (the
+    two experts' CPU probabilities within ROUTE_TIE_EPS: an ulp of the
+    router's sum can swap them); where no token differs, pos and keep must
+    be equal and y, aux within MOE_TOL_FFN_F32 / MOE_TOL_AUX.  Then, in
+    any case, the card's ``moe_ffn`` with its routing pinned to the CPU's
+    must be within those tolerances: the dispatch, the expert products and
+    the combine at full-width buffer sizes (64 x 16 x 84 rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+
+    tag = f"moe_ffn {OLMOE} card vs CPU"
+    cfg = get_config(OLMOE, policy=MatmulPolicy.FP32).replace(
+        compute_dtype="float32")
+    lp = layer_params(params["layers"], 0)["moe"]
+    x = torch.randn((4, 2048, cfg.d_model),
+                    generator=torch.Generator().manual_seed(7))
+    with moe_routing() as card_r:
+        y, aux = moe.moe_ffn(lp, x.cuda(), cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe_routing() as cpu_r:
+        want, want_aux = moe.moe_ffn({k: v.cpu() for k, v in lp.items()},
+                                     x, cfg)
+    cpu_s = time.perf_counter() - t0
+    probs, _, idx, pos, keep = cpu_r.seen[0]
+    _, _, c_idx, c_pos, c_keep = (t.cpu() for t in card_r.seen[0])
+    diff = c_idx != idx
+    flipped = int(diff.any(-1).sum())
+    gap = float((probs.gather(-1, c_idx) - probs.gather(-1, idx)).abs()
+                .max())
+    cap = moe.moe_capacity(idx.shape[1], cfg.moe_top_k,
+                           cfg.moe_num_experts, cfg.moe_capacity_factor)
+    log(f"[{tag}] {idx.shape[0]} groups of {idx.shape[1]}, capacity {cap}: "
+        f"{int((~keep).sum())} of {keep.numel()} (token, slot) pairs "
+        f"dropped on the CPU; {flipped} tokens routed differently, largest "
+        f"CPU probability gap between the two sides' experts {gap:.3e} "
+        f"(tie limit {ROUTE_TIE_EPS}); CPU layer {cpu_s:.2f}s")
+    if gap > ROUTE_TIE_EPS:
+        raise SystemExit(f"[{tag}] the card chose an expert the CPU does "
+                         f"not tie with (gap {gap})")
+    checks = []
+    if not flipped:
+        if not (torch.equal(c_pos, pos) and torch.equal(c_keep, keep)):
+            raise SystemExit(f"[{tag}] same experts, different capacity "
+                             "positions or drops")
+        checks.append(("unpinned", y, aux))
+    with moe_routing(pin=[tuple(t.cuda() for t in cpu_r.seen[0])]):
+        checks.append(("routing pinned to the CPU's",)
+                      + moe.moe_ffn(lp, x.cuda(), cfg))
+    peak = float(want.abs().max())
+    for what, got, got_aux in checks:
+        rel = float((got.cpu() - want).abs().max()) / peak
+        aux_rel = abs(float(got_aux) - float(want_aux)) / float(want_aux)
+        log(f"[{tag}] {what}: y {rel:.3e} of max|y| (tol "
+            f"{MOE_TOL_FFN_F32}), aux {float(got_aux):.6f} vs "
+            f"{float(want_aux):.6f}, {aux_rel:.3e} (tol {MOE_TOL_AUX})")
+        if not (rel <= MOE_TOL_FFN_F32 and aux_rel <= MOE_TOL_AUX
+                and torch.isfinite(got).all()):
+            raise SystemExit(f"[{tag}] {what}: y {rel}, aux {aux_rel}")
+    del y, want, checks
+    torch.cuda.empty_cache()
+
 
 # ---------------------------------------------------------------------------
 # Phases 14-18: the mLSTM kernel and full-width xlstm-125m.
@@ -2858,13 +3151,17 @@ def phase_prefill_xlstm(torch, card: str, params) -> dict:
     return launches
 
 
-class _annotate_xlstm:
-    """Inside the block, each mLSTM chunk loop and each sLSTM block runs
-    under ``record_function`` (labels :data:`XLSTM_RANGES`)."""
+class annotated:
+    """Inside the block each ``(module, function name, label)`` of
+    ``targets`` runs under ``record_function(label)`` (the profiled
+    ranges of :func:`profile_step`)."""
+
+    def __init__(self, targets):
+        import importlib
+        self.targets = [(importlib.import_module(m), name, label)
+                        for m, name, label in targets]
 
     def __enter__(self):
-        import importlib
-
         from torch.profiler import record_function
 
         def wrap(label, f):
@@ -2872,14 +3169,21 @@ class _annotate_xlstm:
                 with record_function(label):
                     return f(*a, **kw)
             return wrapped
-        self.ssm = importlib.import_module(SSM_MOD)
-        self.tr = importlib.import_module("repro_torch.models.transformer")
-        self.saved = (self.ssm._mlstm_chunk_scan, self.tr.slstm_block)
-        self.ssm._mlstm_chunk_scan = wrap(XLSTM_RANGES[0], self.saved[0])
-        self.tr.slstm_block = wrap(XLSTM_RANGES[1], self.saved[1])
+        self.saved = [getattr(mod, name) for mod, name, _ in self.targets]
+        for (mod, name, label), f in zip(self.targets, self.saved):
+            setattr(mod, name, wrap(label, f))
 
     def __exit__(self, *exc):
-        self.ssm._mlstm_chunk_scan, self.tr.slstm_block = self.saved
+        for (mod, name, _), f in zip(self.targets, self.saved):
+            setattr(mod, name, f)
+
+
+def _annotate_xlstm() -> annotated:
+    """Each mLSTM chunk loop and each sLSTM block under
+    ``record_function`` (labels :data:`XLSTM_RANGES`)."""
+    return annotated(((SSM_MOD, "_mlstm_chunk_scan", XLSTM_RANGES[0]),
+                      ("repro_torch.models.transformer", "slstm_block",
+                       XLSTM_RANGES[1])))
 
 
 #: The profiled xLSTM ranges: the mLSTM chunk loops and the sLSTM blocks
@@ -2959,6 +3263,18 @@ def main() -> int:
     del xlstm
     torch.cuda.empty_cache()
     phase_reduced_lm(torch, XLSTM)
+    t0 = time.perf_counter()
+    phase_compare_attention_olmoe(torch)
+    olmoe = lm_params(torch, OLMOE)
+    add(phase_prefill_moe(torch, card, olmoe))
+    phase_moe_ffn_card_vs_cpu(torch, olmoe)
+    phase_compare_lm_gemm(torch, OLMOE)
+    for policy in ("native_bf16", "kom_int14"):
+        add(phase_serve_lm(torch, card, olmoe, policy, OLMOE))
+    del olmoe
+    torch.cuda.empty_cache()
+    phase_reduced_lm(torch, OLMOE)
+    log(f"[moe] phases 19-22 took {time.perf_counter() - t0:.1f}s")
     kernels = []
     for name in KERNELS:
         s = summary[name]

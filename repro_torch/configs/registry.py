@@ -3,8 +3,9 @@
 The port of ``repro.configs.registry``: the eleven transformer-zoo configs
 (exact public configs, as data) and the paper's CNNs.  ``reduced(cfg)``
 shrinks any config to a CPU-test size of the same family.  Of the LM
-families only ``dense`` runs in the port so far; the others raise
-``not_ported`` at ``init_params``/``forward``/``init_cache``
+families ``dense``, ``moe`` and ``ssm`` run in the port so far; ``vlm``,
+``encdec`` and ``hybrid`` raise ``not_ported`` at
+``init_params``/``forward``/``init_cache``
 (:mod:`repro_torch.models.transformer`).
 """
 from __future__ import annotations

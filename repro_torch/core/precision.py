@@ -88,7 +88,7 @@ def kom_q_dot(a: torch.Tensor, b: torch.Tensor, *, variant: str,
 
     if (a.requires_grad or b.requires_grad) and torch.is_grad_enabled():
         raise not_ported("gradients through an integer policy on float "
-                         "weights", "Queue 1 item 2: the straight-through "
+                         "weights", "Queue 1, the straight-through "
                          "training path")
     qmax = kom_qmax(base_bits)
 

@@ -12,6 +12,8 @@
         --policy kom_int14 --slots 4 --requests 8
     python -m repro_torch.launch.serve --arch xlstm-125m \\
         --policy kom_int14 --slots 4 --requests 8
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --policy kom_int14 --slots 4 --requests 8
     python -m repro_torch.launch.serve --arch alexnet,vgg16 \\
         --policy kom_int14 --requests 8 --slo standard \\
         --fault-plan transient=0.2,poison=0.05
@@ -48,12 +50,14 @@ pins ONE engine for every conv layer instead (it refuses ``--plan`` and
 ``--explore``, and a policy the engine cannot run exactly, as the
 reference launcher does).
 
-LMs (the dense and xLSTM families): ``--slots`` decode slots,
+LMs (the dense, MoE and xLSTM families): ``--slots`` decode slots,
 ``--max-len`` cache length, ``--max-new`` tokens per request; each
 request's prompt is ``rng.integers(3, 9)`` random tokens, as in the
 reference.  ``--policy`` applies to every model named; without it each
 model gets its own default: ``kom_int14`` for a CNN, the config's own
-(``native_bf16``) for an LM.
+(``native_bf16``) for an LM.  An MoE decode step routes every slot row
+as one group, so past its capacity (4 slots at olmoe-1b-7b's widths) a
+request can lose an expert to its batch-mates, as in the reference.
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_train_step(cfg: ModelConfig, **_):
-    raise not_ported("make_train_step", "Queue 1 item 10: training and "
+    raise not_ported("make_train_step", "Queue 1, training and "
                      "distribution")
 
 

@@ -6,7 +6,7 @@ The distribution fields (``act_dp``, ``seq_shard``, ``tp_mode``,
 ``shard_mode``) and the rematerialization fields (``remat``,
 ``remat_policy``) are kept as data so configs carry across unchanged; the
 port has no mesh and no training step yet, so nothing reads them
-(ROADMAP.md, Queue 1 item 10).
+(ROADMAP.md, Queue 1, "Training and distribution").
 """
 from __future__ import annotations
 

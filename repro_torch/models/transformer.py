@@ -1,9 +1,10 @@
-"""Model assembly for the transformer zoo, dense and xLSTM (``ssm``)
-families (the port of ``repro.models.transformer``).
+"""Model assembly for the transformer zoo: the dense, MoE and xLSTM
+(``ssm``) families (the port of ``repro.models.transformer``).
 
-Params keep the reference's pytree layout: a dict whose ``"layers"`` leaves
-(dense) or ``"groups"``/``"b{i}"`` leaves (ssm: one entry per member of the
-(m, m, m, s) group) are STACKED (leading layer or group axis), so a test
+Params keep the reference's pytree layout: a dict whose ``"layers"``
+leaves (dense; MoE with ``"moe"`` in place of ``"mlp"``) or
+``"groups"``/``"b{i}"`` leaves (ssm: one entry per member of the (m, m,
+m, s) group) are STACKED (leading layer or group axis), so a test
 can carry params across as they are.  Where the reference scans the stack
 with ``lax.scan``, the port loops in Python (:func:`layer_params` slices
 one layer or group).
@@ -14,9 +15,11 @@ Public API (same names as the reference):
   init_cache(cfg, batch, max_len)  -> decode cache dict
   serve_step(params, cfg, cache, tokens, pos, write_mask) -> (logits, cache)
 
-The ``dense`` and ``ssm`` families run; MoE, VLM, encoder-decoder and
-hybrid raise ``not_ported`` (ROADMAP.md, Queue 1 item 9), and ``loss_fn``
-waits for the training slice.  Entry points run under
+The ``dense``, ``moe`` and ``ssm`` families run; VLM, encoder-decoder and
+hybrid raise ``not_ported`` (ROADMAP.md, Queue 1, "LM side: the other
+families"), and ``loss_fn`` waits for the training slice.  An MoE layer's
+aux loss is summed over layers in f32 and returned by :func:`forward`, as
+the reference's scan carries it.  Entry points run under
 ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.device import resolve_device
 
 from .attention import KVCache, attention, attn_init
 from .config import ModelConfig
+from . import moe
 from .layers import (apply_norm, dense, embed_init, gelu_mlp, linear_init,
                      norm_init, rms_norm, rope, swiglu)
 from .ssm import (MLSTMState, SLSTMState, mlstm_block, mlstm_init,
@@ -37,12 +41,12 @@ from .ssm import (MLSTMState, SLSTMState, mlstm_block, mlstm_init,
 
 #: The ROADMAP.md item each family that is not ported yet waits for.
 _FAMILY_ITEM = {
-    "moe": "Queue 1 item 9: the MoE family (models/moe.py)",
-    "vlm": "Queue 1 item 9: the VLM family",
-    "encdec": "Queue 1 item 9: the encoder-decoder family",
-    "hybrid": "Queue 1 item 9: the hybrid family (RG-LRU in models/ssm.py)",
+    "vlm": "Queue 1, LM side: the VLM family",
+    "encdec": "Queue 1, LM side: the encoder-decoder family",
+    "hybrid": "Queue 1, LM side: the hybrid family (RG-LRU in "
+              "models/ssm.py)",
 }
-_PORTED = ("dense", "ssm")
+_PORTED = ("dense", "moe", "ssm")
 
 
 def _require_ported(cfg: ModelConfig, what: str) -> None:
@@ -107,7 +111,9 @@ def _dense_layer_init(gen, cfg, dtype):
         "attn": attn_init(gen, cfg, dtype, bias=cfg.attn_bias),
         "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev),
     }
-    if cfg.mlp == "swiglu":
+    if cfg.family == "moe":
+        p["moe"] = moe.moe_init(gen, cfg, dtype)
+    elif cfg.mlp == "swiglu":
         p["mlp"] = {
             "w_gate": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
             "w_up": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
@@ -196,8 +202,16 @@ def _mlp_apply(p, x, cfg):
                     policy=cfg.policy)
 
 
+def _ffn_apply(lp, hn, cfg):
+    """The layer's FFN on the normed input: (out, the MoE aux loss or
+    None)."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(lp["moe"], hn, cfg)
+    return _mlp_apply(lp["mlp"], hn, cfg), None
+
+
 def _dense_stack_forward(params, cfg, x, positions, *, collect_kv=False):
-    """The dense layer stack, one layer at a time.
+    """The dense (and MoE) layer stack, one layer at a time.
 
     Returns (x, aux, ys); with ``collect_kv`` ys is the stacked cached
     (k, v) per layer (post k-norm, post rope), (L, b, hkv, s, dh) each.
@@ -215,8 +229,11 @@ def _dense_stack_forward(params, cfg, x, positions, *, collect_kv=False):
             x = h + a + _mlp_apply(lp["mlp"], hn1, cfg)
         else:
             h = h + a
-            x = h + _mlp_apply(lp["mlp"], apply_norm(h, lp["norm2"],
-                                                     cfg.norm), cfg)
+            m, l_aux = _ffn_apply(lp, apply_norm(h, lp["norm2"], cfg.norm),
+                                  cfg)
+            if l_aux is not None:
+                aux = aux + l_aux
+            x = h + m
         if collect_kv:
             # re-derive the cached K/V from the layer's input
             b, s, _ = hn1.shape
@@ -364,6 +381,6 @@ def _serve_step_all_rows(params, cfg: ModelConfig, cache, tokens, pos):
             x = x + a + _mlp_apply(lp["mlp"], hn1, cfg)
         else:
             h = x + a
-            x = h + _mlp_apply(lp["mlp"], apply_norm(h, lp["norm2"],
-                                                     cfg.norm), cfg)
+            x = h + _ffn_apply(lp, apply_norm(h, lp["norm2"], cfg.norm),
+                               cfg)[0]
     return _lm_logits(params, cfg, x), {"kv": KVCache(nk, nv)}

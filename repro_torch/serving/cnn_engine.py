@@ -107,7 +107,7 @@ class CNNServeEngine:
                  clock=None, advance=None):
         if mesh is not None:
             raise not_ported("CNNServeEngine(mesh=...)",
-                             "Queue 1 item 10: distribution")
+                             "Queue 1, training and distribution")
         self.cfg = cfg
         self.device = resolve_device(device)
         if tune:

@@ -129,8 +129,8 @@ def test_registry_matches_reference():
     assert get_config("granite-3-2b").padded_vocab == 49408
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "internvl2-26b",
-                                  "whisper-large-v3", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["internvl2-26b", "whisper-large-v3",
+                                  "recurrentgemma-9b"])
 def test_other_families_raise_not_ported(arch):
     cfg = reduced(get_config(arch))
     gen = torch.Generator().manual_seed(0)
@@ -288,7 +288,8 @@ def test_prefill_step_and_collect_kv_match_reference():
             torch.arange(12), collect_kv=True)
     assert k.shape == rk.shape and v.shape == rv.shape
     assert _rel(k, rk) <= TOL_FP32 and _rel(v, rv) <= TOL_FP32
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1, training and distribution"):
         step_fns.make_train_step(cfg)
 
 

@@ -31,9 +31,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("implicit_times needs an NVIDIA GPU")
     build.build(["implicit_conv"])
-    for line in build.compiler_report("implicit_conv").splitlines():
-        if "spill" in line and not line.strip().startswith("0 bytes"):
-            print("   ", line.strip())
+    for kernel, line in build.compiler_report("implicit_conv"):
+        if build.spills(line):
+            print("   ", kernel, line)
     tag = os.path.basename(os.getcwd())
     gen = torch.Generator().manual_seed(2)
     sums = {}

@@ -1,4 +1,4 @@
-"""Times the f32 flash-attention kernel and the chunkwise-mLSTM kernels at
+"""Times the flash-attention kernels and the chunkwise-mLSTM kernels at
 their full-width shapes, and the granite-3-2b fp32 prefill step.
 
     python -m repro_torch.analysis.lm_kernel_times [--no-prefill]
@@ -9,10 +9,11 @@ prints any spill the compiler reports for them, and times (CUDA events,
 ``chip_smoke.cuda_ms``, after warm-up launches):
 
 * f32 flash attention at one granite-3-2b prefill layer (b 4, hq 32, hkv
-  8, sq = skv = 2048, dh 64, causal), and beside it the two kernels this
-  work leaves as they were: bf16 attention at the same layer and flash
-  decode (b 8, hq 32, hkv 8, S 4096, dh 64, pos 4095; f32 and bf16, device
-  time replayed from a CUDA graph, as ``chip_smoke.py`` times it);
+  8, sq = skv = 2048, dh 64, causal), bf16 attention at the same layer,
+  both dtypes at one olmoe-1b-7b prefill layer (b 4, hq = hkv = 16, sq =
+  skv = 2048, dh 128, causal), and flash decode (b 8, hq 32, hkv 8, S
+  4096, dh 64, pos 4095; f32 and bf16, device time replayed from a CUDA
+  graph, as ``chip_smoke.py`` times it);
 * the chunkwise mLSTM in f32 at one xlstm-125m layer (b 4, h 4, 2048
   tokens, dh 384, chunk 64) and at 1 x 4 x 32768;
 * unless ``--no-prefill``: the full-width granite-3-2b prefill step on 4 x
@@ -57,9 +58,9 @@ def main() -> None:
     names = ("flash_attention", "flash_decode", "mlstm_chunk")
     build.build(names)
     for name in names:
-        for line in build.compiler_report(name).splitlines():
-            if "spill" in line and not line.strip().startswith("0 bytes"):
-                print("   ", name, line.strip())
+        for kernel, line in build.compiler_report(name):
+            if build.spills(line):
+                print("   ", name, kernel, line)
     tag = os.path.basename(os.getcwd())
     gen = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -86,6 +87,13 @@ def main() -> None:
                             warmup=3)
     print(f"{tag} flash_attention bf16 4x32x2048 dh64 {ms:.4f}")
     del q, k, v, qb, kb, vb
+    for dt in (torch.float32, torch.bfloat16):
+        x = tuple(rnd(4, 16, 2048, 128).to(dt) for _ in range(3))
+        ms = chip_smoke.cuda_ms(lambda: flash_attention(*x), iters=20,
+                                warmup=3)
+        print(f"{tag} flash_attention {str(dt)[6:]} 4x16x2048 dh128 "
+              f"{ms:.4f}")
+    del x
     q, kc, vc = rnd(8, 32, 1, 64), rnd(8, 8, 4096, 64), rnd(8, 8, 4096, 64)
     for dt in (torch.float32, torch.bfloat16):
         x = tuple(t.to(dt) for t in (q, kc, vc))

@@ -1,7 +1,8 @@
 // Flash attention on Hopper: online-softmax attention with GQA, causal and
-// sliding-window masks and a q_offset, the output in q's dtype.  Two kernels,
-// chosen by dtype alone in flash_attention_launch: f32 inputs run three TF32
-// passes on mma.sync, bf16 inputs bf16 wgmma; both on the tensor cores.
+// sliding-window masks and a q_offset, the output in q's dtype.  Chosen in
+// flash_attention_launch by dtype and head dim: f32 inputs run three TF32
+// passes on mma.sync, bf16 inputs bf16 wgmma (a warp-specialized TMA kernel
+// at d = 128); all on the tensor cores.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py:_attn_kernel
 // (flash_attention_raw), whose grid (b, hq, sq/bq, skv/bk) ran the KV axis in
@@ -31,14 +32,16 @@
 // cores' f32 rate.  Both products are mma.sync m16n8k8 TF32 steps, each
 // 8-deep step formed from zero and added to an f32 partial with __fadd_rn
 // (an MMA's own sum is not round-to-nearest).  Eight warps of 16 q rows
-// each (four at d = 128); the q tile is split once into shared memory; K/V
-// tiles of 64 keys (32 at d = 128) come through a 2-stage cp.async ring and
-// are split once per block as they land, while the next tile's copy is in
-// flight.  S stays in registers; its C fragment is P's A fragment (the
-// permuted K order of tf32x3.cuh), so P never leaves registers.  Blocks
-// skip the KV tiles outside the live key range of their rows (the causal
-// half), warps the tiles outside theirs, and the heaviest q blocks launch
-// first.
+// each; the q tile is split once into shared memory; K/V tiles of 64 keys
+// (32 at d = 128) are split once per block as they land, while the next
+// tile's copy is in flight: through a 2-stage cp.async ring, or at d = 128,
+// where the 128-row split q tile leaves no room for the ring, through
+// registers (each thread's share of the next tile loaded before this
+// tile's math; one block of 8 warps an SM, where the ring held it to 4).
+// S stays in registers; its C fragment is P's A fragment (the permuted K
+// order of tf32x3.cuh), so P never leaves registers.  Blocks skip the KV
+// tiles outside the live key range of their rows (the causal half), warps
+// the tiles outside theirs, and the heaviest q blocks launch first.
 //
 // The bf16 kernel.  With bf16 inputs the same work is priced at the bf16
 // tensor-core rate (989 TFLOP/s, ~15x the f32 CUDA-core rate), so it runs
@@ -57,6 +60,30 @@
 //     multiplied (P_hi V + P_lo V): v is bf16 and exact, so the products
 //     keep ~16 bits of p, for one extra product per tile.
 // Skipping and tile order are the f32 kernel's (tiles of 64 keys).
+//
+// The bf16 kernel at d = 128 (ws::).  The same arithmetic on 128-key tiles:
+// S is m64n128k16 over 8 k-steps, P V m64n128k16 over 8 k-steps per limb.
+// What bounds it is the bf16 tensor-core work, 1.5x the roofline's count
+// (P V twice, for the two limbs) plus the diagonal tiles' masked half, with
+// the softmax and limb packing on the CUDA cores (expf, two bf16 packs per
+// pair of p) close behind.  At d = 128 the tc kernel's tiles take 128 KB,
+// one block an SM, and each block ran its S, softmax and P V in turn, so
+// the tensor cores idled through every softmax.  Here the work of an SM is
+// split by role:
+//   * one producer warp (a whole warpgroup, its registers given up with
+//     setmaxnreg) issues TMA copies: the q tile and K/V tiles into a
+//     2-stage ring of full/empty mbarriers, each tile two 128-row x
+//     64-column boxes in the 128-byte swizzle that wgmma's swizzled
+//     descriptors read (Q, K K-major; V MN-major);
+//   * two consumer warpgroups of 64 q rows (232 registers each) take turns
+//     on the tensor cores, ordered by named barriers: a turn issues P V of
+//     the last tile and then S of this one and hands over, so one
+//     warpgroup's softmax runs while the other's products do.  A second S
+//     in flight inside one warpgroup would need acc + S + P + S' registers,
+//     more than 232, so the overlap is between the warpgroups;
+//   * one persistent block an SM walks the (q block, batch, head) items,
+//     heaviest q blocks first; the ring and the turns run on across items.
+#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,28 +97,27 @@ constexpr float NEG = -1e30f;
 
 // The KV tiles of bkv keys that q rows q0..q0+bq-1 walk, [begin, end): the
 // union of the rows' live key ranges, or every tile when one row has no
-// live key (see the note at the top).
+// live key (see the note at the top).  A row's live keys lo(p)..hi(p), p
+// its position, both grow with p, and the rows with none (lo > hi) are a
+// prefix (causal, p < 0) and a suffix (p past skv + window - 2), so the
+// first and the last row decide: the union is lo(first)..hi(last).
 __device__ __forceinline__ void kv_tiles(int q0, int bq, int sq, int skv,
                                          int causal, int has_window,
                                          int window, int q_offset, int bkv,
                                          int& begin, int& end) {
-  long long lo_all = (long long)skv, hi_all = -1;
-  bool any_empty = false;
-  for (int r = 0; r < bq && q0 + r < sq; ++r) {
-    const long long p = (long long)q0 + r + q_offset;
-    long long hi = causal ? (p < skv - 1 ? p : skv - 1) : skv - 1;
-    long long lo = has_window ? p - window + 1 : 0;
-    if (lo < 0) lo = 0;
-    if (lo > hi) {
-      any_empty = true;
-    } else {
-      lo_all = lo < lo_all ? lo : lo_all;
-      hi_all = hi > hi_all ? hi : hi_all;
-    }
+  long long lo[2], hi[2];
+  const int last = (sq - q0 < bq ? sq - q0 : bq) - 1;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long p = (long long)q0 + (e ? last : 0) + q_offset;
+    hi[e] = causal ? (p < skv - 1 ? p : skv - 1) : skv - 1;
+    lo[e] = has_window ? p - window + 1 : 0;
+    if (lo[e] < 0) lo[e] = 0;
   }
+  const bool any_empty = lo[0] > hi[0] || lo[1] > hi[1];
   const int n_kt = (skv + bkv - 1) / bkv;
-  begin = any_empty ? 0 : (int)(lo_all / bkv);
-  end = any_empty ? n_kt : (int)(hi_all / bkv) + 1;
+  begin = any_empty ? 0 : (int)(lo[0] / bkv);
+  end = any_empty ? n_kt : (int)(hi[1] / bkv) + 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -315,7 +341,105 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
   if constexpr (DH == 16) wgmma_rs_n16(d, a, db);
   if constexpr (DH == 32) wgmma_rs_n32(d, a, db);
   if constexpr (DH == 64) wgmma_rs_n64(d, a, db);
-  if constexpr (DH == 128) wgmma_rs_n128(d, a, db);
+}
+
+// One KV tile of NK keys (from key k0) for the thread's two q rows, after
+// S landed in s (the m64nNK accumulator): mask, online softmax (a row's 4
+// threads are adjacent lanes), P split into two bf16 limbs as P V's A
+// fragments (chunk i of 8 keys is k-step i / 2, its first or second half;
+// each register pair is one row's two neighbouring keys), and acc
+// rescaled.  A tile wholly inside both rows' live keys (most tiles) needs
+// no test.
+template <int NK, int DH>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[NK / 2], float (&acc)[DH / 2], float (&m)[2], float (&l)[2],
+    uint32_t (&ph)[NK / 16][4], uint32_t (&pl)[NK / 16][4], int k0,
+    const int (&live_lo)[2], const int (&live_hi)[2], int skv, float scale,
+    int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (k0 >= live_lo[0] && k0 >= live_lo[1] && k0 + NK - 1 <= live_hi[0] &&
+      k0 + NK - 1 <= live_hi[1]) {
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) {
+      s[i] = __fmul_rn(s[i], scale);
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NK / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + 8 * i + 2 * t + (j & 1), r = j >> 1;
+        const float v =
+            kp >= skv ? -INFINITY  // no such key
+            : kp >= live_lo[r] && kp <= live_hi[r]
+                ? __fmul_rn(s[4 * i + j], scale)
+                : NEG;
+        s[4 * i + j] = v;
+        mx[r] = fmaxf(mx[r], v);
+      }
+  }
+  float m_new[2], sum[2] = {0.0f, 0.0f}, alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m[r], mx[r]);
+  }
+#pragma unroll
+  for (int i = 0; i < NK / 8; ++i) {
+    float p[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      p[j] = expf(__fsub_rn(s[4 * i + j], m_new[j >> 1]));
+      sum[j >> 1] = __fadd_rn(sum[j >> 1], p[j]);
+    }
+    const int kk = i / 2, half = 2 * (i % 2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t hi = pack_bf16(p[2 * r], p[2 * r + 1]);
+      ph[kk][half + r] = hi;
+      pl[kk][half + r] =  // p - hi is exact in f32
+          pack_bf16(__fsub_rn(p[2 * r], __uint_as_float(hi << 16)),
+                    __fsub_rn(p[2 * r + 1],
+                              __uint_as_float(hi & 0xffff0000u)));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+    sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
+    alpha[r] = expf(__fsub_rn(m[r], m_new[r]));
+    l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), sum[r]);
+    m[r] = m_new[r];
+  }
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    acc[4 * i] = __fmul_rn(acc[4 * i], alpha[0]);
+    acc[4 * i + 1] = __fmul_rn(acc[4 * i + 1], alpha[0]);
+    acc[4 * i + 2] = __fmul_rn(acc[4 * i + 2], alpha[1]);
+    acc[4 * i + 3] = __fmul_rn(acc[4 * i + 3], alpha[1]);
+  }
+}
+
+// The thread's two q rows (row0, row0 + 8 of the block at q0) of out = acc
+// / (l == 0 ? 1 : l), as bf16, into the head's rows at ob.
+template <int DH>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* ob,
+                                           const float (&acc)[DH / 2],
+                                           const float (&l)[2], int q0,
+                                           int row0, int sq, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row0 + 8 * r;
+    if (row >= sq) continue;
+    const float den = l[r] == 0.0f ? 1.0f : l[r];
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row * DH + 8 * i + 2 * t) =
+          pack_bf16(__fdiv_rn(acc[4 * i + 2 * r], den),
+                    __fdiv_rn(acc[4 * i + 2 * r + 1], den));
+  }
 }
 
 template <int DH>
@@ -408,76 +532,9 @@ __global__ void __launch_bounds__(THREADS)
     wgmma_wait_all();
     reg_fence(s);
 
-    // Mask, online softmax (a row's 4 threads are adjacent lanes).  A tile
-    // wholly inside both rows' live keys (most tiles) needs no test.
-    const int k0 = kt * BKV;
-    float mx[2] = {-INFINITY, -INFINITY};
-    if (k0 >= live_lo[0] && k0 >= live_lo[1] && k0 + BKV - 1 <= live_hi[0] &&
-        k0 + BKV - 1 <= live_hi[1]) {
-#pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) {
-        s[i] = __fmul_rn(s[i], scale);
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < BKV / 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kp = k0 + 8 * i + 2 * t + (j & 1), r = j >> 1;
-          const float v =
-              kp >= skv ? -INFINITY  // no such key
-              : kp >= live_lo[r] && kp <= live_hi[r]
-                  ? __fmul_rn(s[4 * i + j], scale)
-                  : NEG;
-          s[4 * i + j] = v;
-          mx[r] = fmaxf(mx[r], v);
-        }
-    }
-    float m_new[2], sum[2] = {0.0f, 0.0f}, alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      m_new[r] = fmaxf(m[r], mx[r]);
-    }
     uint32_t ph[BKV / 16][4], pl[BKV / 16][4];
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) {
-      float p[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = expf(__fsub_rn(s[4 * i + j], m_new[j >> 1]));
-        sum[j >> 1] = __fadd_rn(sum[j >> 1], p[j]);
-      }
-      // chunk i is k-step i/2, its first (i even) or second 8 keys; each
-      // register pair is one row's two neighbouring keys.
-      const int kk = i / 2, half = 2 * (i % 2);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t hi = pack_bf16(p[2 * r], p[2 * r + 1]);
-        ph[kk][half + r] = hi;
-        pl[kk][half + r] =  // p - hi is exact in f32
-            pack_bf16(__fsub_rn(p[2 * r], __uint_as_float(hi << 16)),
-                      __fsub_rn(p[2 * r + 1],
-                                __uint_as_float(hi & 0xffff0000u)));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
-      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
-      alpha[r] = expf(__fsub_rn(m[r], m_new[r]));
-      l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), sum[r]);
-      m[r] = m_new[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DH / 8; ++i) {
-      acc[4 * i] = __fmul_rn(acc[4 * i], alpha[0]);
-      acc[4 * i + 1] = __fmul_rn(acc[4 * i + 1], alpha[0]);
-      acc[4 * i + 2] = __fmul_rn(acc[4 * i + 2], alpha[1]);
-      acc[4 * i + 3] = __fmul_rn(acc[4 * i + 3], alpha[1]);
-    }
+    softmax_tile<BKV, DH>(s, acc, m, l, ph, pl, kt * BKV, live_lo, live_hi,
+                          skv, scale, t);
 
     // O += P_hi V + P_lo V, P from registers, V (MN-major) from shared
     // memory: a k-step is 16 keys, two 8-key groups of ROWS8 bytes.
@@ -496,18 +553,8 @@ __global__ void __launch_bounds__(THREADS)
     reg_fence(pl);
   }
 
-  __nv_bfloat16* ob = O + ((size_t)(b * hq + h) * sq) * DH;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + row0 + 8 * r;
-    if (row >= sq) continue;
-    const float den = l[r] == 0.0f ? 1.0f : l[r];
-#pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row * DH + 8 * i + 2 * t) =
-          pack_bf16(__fdiv_rn(acc[4 * i + 2 * r], den),
-                    __fdiv_rn(acc[4 * i + 2 * r + 1], den));
-  }
+  store_rows<DH>(O + ((size_t)(b * hq + h) * sq) * DH, acc, l, q0, row0, sq,
+                 t);
 }
 
 template <int DH>
@@ -542,9 +589,6 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
                         window, q_offset, scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
-                         window, q_offset, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -553,14 +597,386 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// The bf16 kernel at dh 128: a TMA producer, two ping-ponging consumer
+// warpgroups (see the note at the top).
+// ---------------------------------------------------------------------------
+
+namespace ws {
+
+constexpr int DH = 128, BQ = 128, BKV = 128;
+constexpr int STAGES = 2;  // K/V ring depth (3 fits, and was no faster)
+constexpr int THREADS = 384;    // warpgroup 0 loads, 1 and 2 compute
+constexpr int CONSUMERS = 256;
+constexpr uint32_t HALF = 128 * 64 * 2;  // one TMA box: 128 rows x 64 cols
+constexpr uint32_t TILE = 2 * HALF;      // a 128 x 128 tile, two boxes
+constexpr uint32_t ROWS8 = 1024;         // 8 swizzled rows of 128 bytes
+// Q, the K ring, the V ring, then the barriers; 1 KB of slack puts the
+// tiles on the 1 KB boundary that the 128-byte swizzle repeats on.
+constexpr size_t SMEM =
+    1024 + (size_t)TILE * (1 + 2 * STAGES) + 8 * (2 + 3 * STAGES);
+
+using tc::smem_addr;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Waits for the phase of `bar` with this parity; after 2^26 tries (seconds:
+// an arrival that never comes) it traps, so a fault ends the launch with
+// an error instead of hanging the card.  The loop stays inside the PTX.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 67108864;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// One box of a 3-d tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(char* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+// Named barriers between the two consumer warpgroups (0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+
+// A 128-byte-swizzled shared-memory descriptor (layout type 1): K-major
+// tiles (Q, K) take SBO = 8 rows and LBO = 16 (unused); the MN-major V
+// tile takes LBO = the step between its two 64-column boxes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return tc::make_desc(p, lbo, sbo) | (1ull << 62);
+}
+
+// D (64 x 128, f32) [+]= A (64 x 16, shared) * B (16 x 128, shared), both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Work item i: q block (latest, i.e. heaviest, first) and (batch, head).
+__device__ __forceinline__ void work_item(int i, int n_qt, int per_q,
+                                          int& q0, int& bh) {
+  q0 = (n_qt - 1 - i / per_q) * BQ;
+  bh = i % per_q;
+}
+
+// Thread layout of a consumer: warpgroup c (q rows 64c..), warp w of it,
+// lane = 4g + t, as the tc kernel's.  Per work item the warpgroup takes
+// n + 1 turns on the tensor cores: turn j issues P V of tile j - 1 (j > 0)
+// and S = Q K^T of tile j (j < n); between its turns it runs the softmax
+// of the S it got, while the other warpgroup's turn runs.  Named barrier 1
+// lets warpgroup 0 start a turn, 2 warpgroup 1: each warpgroup hands the
+// tensor cores over as soon as it has issued.
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              __nv_bfloat16* __restrict__ O, int b, int hq,
+                              int hkv, int sq, int skv, int causal,
+                              int has_window, int window, int q_offset,
+                              float scale) {
+  extern __shared__ char smem_raw[];
+  char* sQ = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  char* sK = sQ + TILE;
+  char* sV = sK + STAGES * TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + STAGES * TILE);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_full + 2;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* kv_empty = v_full + STAGES;
+
+  // The warpgroup, broadcast from lane 0 so that the compiler sees it is
+  // uniform: a wgmma on a path it cannot prove uniform is serialized.
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int n_qt = (sq + BQ - 1) / BQ, per_q = b * hq;
+  const int n_items = n_qt * per_q;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int it = 0, n = 0;  // tiles and items walked so far
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
+        int q0, bh, kb, ke;
+        work_item(i, n_qt, per_q, q0, bh);
+        const int kvh = bh / hq * hkv + bh % hq / (hq / hkv);
+        kv_tiles(q0, BQ, sq, skv, causal, has_window, window, q_offset, BKV,
+                 kb, ke);
+        mbar_wait(q_empty, (n & 1) ^ 1);  // the last item's S are done
+        mbar_expect_tx(q_full, TILE);
+        tma_load(sQ, &tm_q, q_full, 0, q0, bh);
+        tma_load(sQ + HALF, &tm_q, q_full, 64, q0, bh);
+        for (int kt = kb; kt < ke; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&kv_empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&k_full[s], TILE);
+          tma_load(sK + s * TILE, &tm_k, &k_full[s], 0, kt * BKV, kvh);
+          tma_load(sK + s * TILE + HALF, &tm_k, &k_full[s], 64, kt * BKV,
+                   kvh);
+          mbar_expect_tx(&v_full[s], TILE);
+          tma_load(sV + s * TILE, &tm_v, &v_full[s], 0, kt * BKV, kvh);
+          tma_load(sV + s * TILE + HALF, &tm_v, &v_full[s], 64, kt * BKV,
+                   kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1;
+  const int w = (tid % 128) / 32, g = (tid % 32) / 4, t = tid % 4;
+  const int row0 = 64 * c + 16 * w + g;  // and row0 + 8
+  int it = 0, n = 0;
+  bool first_turn = true;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
+    const bool last_item = i + (int)gridDim.x >= n_items;
+    int q0, bh, kb, ke;
+    work_item(i, n_qt, per_q, q0, bh);
+    kv_tiles(q0, BQ, sq, skv, causal, has_window, window, q_offset, BKV, kb,
+             ke);
+    const int n_t = ke - kb;
+    int live_lo[2], live_hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long p = (long long)q0 + row0 + 8 * r + q_offset;
+      const long long hi = causal ? (p < skv - 1 ? p : skv - 1) : skv - 1;
+      const long long lo = has_window ? p - window + 1 : 0;
+      live_hi[r] = (int)(hi < -1 ? -1 : hi);
+      live_lo[r] = (int)(lo < 0 ? 0 : lo > skv ? skv : lo);
+    }
+    float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+    float acc[DH / 2];
+    uint32_t ph[BKV / 16][4], pl[BKV / 16][4];
+#pragma unroll
+    for (int e = 0; e < DH / 2; ++e) acc[e] = 0.0f;
+    // Q rows 64c.., columns 16kk..: box kk / 4, 32 bytes a step inside it.
+    const uint64_t dq = sw128_desc(sQ + c * 64 * 128, 16, ROWS8);
+    mbar_wait(q_full, n & 1);
+
+    for (int j = 0; j <= n_t; ++j) {
+      const int cur = it + j, s_cur = cur % STAGES;
+      const int s_prev = (cur + STAGES - 1) % STAGES;
+      if (j < n_t) mbar_wait(&k_full[s_cur], (cur / STAGES) & 1);
+      if (j > 0) mbar_wait(&v_full[s_prev], ((cur - 1) / STAGES) & 1);
+      if (c == 1)
+        bar_sync(2);
+      else if (!first_turn)
+        bar_sync(1);
+      first_turn = false;
+      if (j > 0) {
+        // O += P_hi V + P_lo V; V (MN-major) a k-step of 16 keys = 2 KB.
+        const char* v_s = sV + s_prev * TILE;
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          tc::wgmma_rs_n128(acc, ph[kk],
+                            sw128_desc(v_s + kk * 2 * ROWS8, HALF, ROWS8));
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          tc::wgmma_rs_n128(acc, pl[kk],
+                            sw128_desc(v_s + kk * 2 * ROWS8, HALF, ROWS8));
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::reg_fence(acc);
+        tc::reg_fence(ph);
+        tc::reg_fence(pl);
+        mbar_arrive(&kv_empty[s_prev]);
+      }
+      float s[BKV / 2];
+      if (j < n_t) {
+        const uint64_t dk = sw128_desc(sK + s_cur * TILE, 16, ROWS8);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const uint32_t step = ((kk / 4) * HALF + (kk % 4) * 32) >> 4;
+          wgmma_ss_n128(s, dq + step, dk + step, kk);
+        }
+        tc::wgmma_commit();
+      }
+      if (c == 0)
+        bar_arrive(2);
+      else if (!(last_item && j == n_t))
+        bar_arrive(1);
+      if (j == n_t) break;
+      tc::wgmma_wait_all();
+      tc::reg_fence(s);
+      if (j == n_t - 1) mbar_arrive(q_empty);
+
+      tc::softmax_tile<BKV, DH>(s, acc, m, l, ph, pl, (kb + j) * BKV,
+                                live_lo, live_hi, skv, scale, t);
+    }
+    it += n_t;
+
+    tc::store_rows<DH>(O + ((size_t)bh * sq) * DH, acc, l, q0, row0, sq, t);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (the libraries link
+// no libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (heads, rows, 128) bf16 tensor in boxes of 128 rows x 64 columns of one
+// head, 128-byte swizzled; rows past `rows` arrive as zeros.
+bool tile_map(EncodeTiled enc, CUtensorMap* map, const void* base, int rows,
+              int heads) {
+  const cuuint64_t dims[3] = {DH, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {DH * 2, (cuuint64_t)rows * DH * 2};
+  const cuuint32_t box[3] = {64, BQ, 1}, unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int hq, int hkv, int sq, int skv, int causal, int has_window,
+           int window, int q_offset, float scale, cudaStream_t st) {
+  if (skv == 0)  // no key: every row averages nothing, acc / 1 = 0
+    return (int)cudaMemsetAsync(o, 0, (size_t)b * hq * sq * DH * 2, st);
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!tile_map(enc, &mq, q, sq, b * hq) ||
+      !tile_map(enc, &mk, k, skv, b * hkv) ||
+      !tile_map(enc, &mv, v, skv, b * hkv))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // One persistent block per SM walks the items (about 1% faster on an
+  // H100 at olmoe-1b-7b's prefill layer than one block an item).
+  const int items = (sq + BQ - 1) / BQ * b * hq;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = items < sms ? items : sms;
+  flash_attention_ws_kernel<<<blocks, THREADS, SMEM, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), b, hq, hkv, sq, skv,
+      causal, has_window, window, q_offset, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ws
+
+// ---------------------------------------------------------------------------
 // The f32 kernel: three TF32 passes on mma.sync (see the note at the top).
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
+// At dh 128 a raw cp.async ring beside the split 128-row Q tile would not
+// fit in shared memory, so the next tile's raw K/V wait in registers
+// instead (RING false): 8 warps stay resident on an SM, as at dh 64.  At
+// dh 32 and 64 the ring stays: the register path there spilled more and
+// ran 0.7% slower at granite-3-2b's layer on an H100
+// (repro_torch/analysis/lm_kernel_times.py across two checkouts), and at
+// dh 16 a thread would hold no V row pair.
 template <int DH>
 struct Cfg {
-  static constexpr int BQ = DH == 128 ? 64 : 128;   // q rows per block
+  static constexpr bool RING = DH != 128;           // raw K/V ring, else
+                                                    // registers
+  static constexpr int BQ = 128;                    // q rows per block
   static constexpr int BKV = DH == 128 ? 32 : 64;   // keys per KV tile
   static constexpr int WARPS = BQ / 16;             // 16 q rows per warp
   static constexpr int THREADS = 32 * WARPS;
@@ -568,9 +984,12 @@ struct Cfg {
   static constexpr int LDQ = DH / 2 + 4;  // quads per Q or K row, == 4 mod 8
   static constexpr int LDV = DH + 2;      // quads per V pair row, == 2 mod 8
   static constexpr int RAW = BKV * DH;    // floats of one raw K or V tile
+  // Register path: float4s of K, and pairs of V rows' float4s, a thread.
+  static constexpr int KF = RING ? 1 : BKV * DH / 4 / THREADS;
+  static constexpr int VU = RING ? 1 : BKV / 2 * DH / 4 / THREADS;
   static constexpr size_t smem =
       16 * (size_t)(BQ * LDQ + BKV * LDQ + BKV / 2 * LDV) +
-      4 * (size_t)(STAGES * 2 * RAW);
+      4 * (size_t)(RING ? STAGES * 2 * RAW : 0);
 };
 
 // Warp w owns q rows 16w .. 16w + 15 of the block; lane = 4g + t holds rows
@@ -622,7 +1041,53 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
     }
     tc::cp_async_commit();  // an empty group past the end keeps the count
   };
-  load_kv(kt_begin);
+  // The register path: tile kt's raw K (rows f / (DH / 4)) and V (row
+  // pairs u / (DH / 4)) as float4s, then split into sK/sV.
+  float4 rk[C::KF], rv[C::VU][2];
+  auto fetch = [&](int kt) {
+    const int k0 = kt * BKV;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < C::KF; ++i) {
+      const int f = tid + C::THREADS * i, j = k0 + f / (DH / 4);
+      rk[i] = j < skv ? *reinterpret_cast<const float4*>(
+                            kb + (size_t)j * DH + 4 * (f % (DH / 4)))
+                      : zero;
+    }
+#pragma unroll
+    for (int i = 0; i < C::VU; ++i) {
+      const int u = tid + C::THREADS * i, c4 = u % (DH / 4);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + 2 * (u / (DH / 4)) + e;
+        rv[i][e] = j < skv ? *reinterpret_cast<const float4*>(
+                                 vb + (size_t)j * DH + 4 * c4)
+                           : zero;
+      }
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int i = 0; i < C::KF; ++i) {
+      const int f = tid + C::THREADS * i;
+      uint4* dst = sK + f / (DH / 4) * LDQ + 2 * (f % (DH / 4));
+      dst[0] = tf32x3::pair_quad(rk[i].x, rk[i].y);
+      dst[1] = tf32x3::pair_quad(rk[i].z, rk[i].w);
+    }
+#pragma unroll
+    for (int i = 0; i < C::VU; ++i) {
+      const int u = tid + C::THREADS * i;
+      uint4* dst = sV + u / (DH / 4) * LDV + 4 * (u % (DH / 4));
+      dst[0] = tf32x3::pair_quad(rv[i][0].x, rv[i][1].x);
+      dst[1] = tf32x3::pair_quad(rv[i][0].y, rv[i][1].y);
+      dst[2] = tf32x3::pair_quad(rv[i][0].z, rv[i][1].z);
+      dst[3] = tf32x3::pair_quad(rv[i][0].w, rv[i][1].w);
+    }
+  };
+  if constexpr (C::RING)
+    load_kv(kt_begin);
+  else if (kt_begin < kt_end)
+    fetch(kt_begin);
   for (int idx = tid; idx < BQ * DH / 2; idx += C::THREADS) {
     const int r = idx / (DH / 2), p = idx % (DH / 2);
     float2 x = make_float2(0.0f, 0.0f);
@@ -652,22 +1117,30 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BKV;
-    const float* rk = raw + (kt - kt_begin) % C::STAGES * 2 * C::RAW;
-    const float* rv = rk + C::RAW;
-    tc::cp_async_wait<0>();  // this thread's copies of tile kt landed
-    __syncthreads();  // everyone's have; everyone is done with tile kt - 1
-    load_kv(kt + 1);  // into tile kt - 1's stage, converted already
-    for (int idx = tid; idx < BKV * DH / 2; idx += C::THREADS) {
-      const int j = idx / (DH / 2), p = idx % (DH / 2);
-      const float2 x = *reinterpret_cast<const float2*>(rk + j * DH + 2 * p);
-      sK[j * LDQ + p] = tf32x3::pair_quad(x.x, x.y);
+    if constexpr (C::RING) {
+      const float* rk = raw + (kt - kt_begin) % C::STAGES * 2 * C::RAW;
+      const float* rv = rk + C::RAW;
+      tc::cp_async_wait<0>();  // this thread's copies of tile kt landed
+      __syncthreads();  // everyone's have; everyone is done with tile kt - 1
+      load_kv(kt + 1);  // into tile kt - 1's stage, converted already
+      for (int idx = tid; idx < BKV * DH / 2; idx += C::THREADS) {
+        const int j = idx / (DH / 2), p = idx % (DH / 2);
+        const float2 x =
+            *reinterpret_cast<const float2*>(rk + j * DH + 2 * p);
+        sK[j * LDQ + p] = tf32x3::pair_quad(x.x, x.y);
+      }
+      for (int idx = tid; idx < BKV / 2 * DH; idx += C::THREADS) {
+        const int r = idx / DH, d = idx % DH;
+        sV[r * LDV + d] =
+            tf32x3::pair_quad(rv[2 * r * DH + d], rv[(2 * r + 1) * DH + d]);
+      }
+      __syncthreads();
+    } else {
+      __syncthreads();  // everyone is done with tile kt - 1
+      stash();          // tile kt, fetched during tile kt - 1
+      __syncthreads();
+      if (kt + 1 < kt_end) fetch(kt + 1);  // in flight during this tile
     }
-    for (int idx = tid; idx < BKV / 2 * DH; idx += C::THREADS) {
-      const int r = idx / DH, d = idx % DH;
-      sV[r * LDV + d] =
-          tf32x3::pair_quad(rv[2 * r * DH + d], rv[(2 * r + 1) * DH + d]);
-    }
-    __syncthreads();
 
     // A tile outside the live keys of all 16 rows of the warp, every one of
     // which has a live key, changes nothing (see the note at the top).
@@ -888,6 +1361,24 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The dynamic shared memory a launch at head dim dh asks for, in bytes (0:
+// no such kernel).
+extern "C" int flash_attention_smem_bytes(int dh, int bf16) {
+  if (bf16 && dh == ws::DH) return (int)ws::SMEM;
+  switch (dh) {
+    case 16:
+      return (int)(bf16 ? tc::smem_bytes<16>() : f32::Cfg<16>::smem);
+    case 32:
+      return (int)(bf16 ? tc::smem_bytes<32>() : f32::Cfg<32>::smem);
+    case 64:
+      return (int)(bf16 ? tc::smem_bytes<64>() : f32::Cfg<64>::smem);
+    case 128:
+      return (int)f32::Cfg<128>::smem;
+    default:
+      return 0;
+  }
+}
+
 // q (b, hq, sq, dh), k/v (b, hkv, skv, dh) -- skv is the padded key count --
 // and o (b, hq, sq, dh), all contiguous, f32 (bf16 = 0: the f32 kernel) or
 // bf16 (bf16 = 1: the wgmma kernel).  Returns cudaGetLastError() after
@@ -899,6 +1390,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int q_offset, int bf16, float scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && dh == ws::DH)
+    return ws::launch(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                      window, q_offset, scale, st);
   if (bf16)
     return tc::launch_dh(dh, q, k, v, o, b, hq, hkv, sq, skv, causal,
                          has_window, window, q_offset, scale, st);

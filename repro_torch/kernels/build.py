@@ -154,9 +154,26 @@ def sass_count(name: str, pattern: str) -> int:
     return sum(1 for line in out.splitlines() if rx.search(line))
 
 
-def compiler_report(name: str) -> str:
-    """What ``nvcc -Xptxas=-v`` printed when this process built ``name``."""
-    return _ptxas.get(name, "")
+def compiler_report(name: str) -> list[tuple[str, str]]:
+    """What ``nvcc -Xptxas=-v`` said when this process built ``name`` (empty
+    if it did not): ``(kernel, line)`` for each compiled kernel's registers,
+    stack and spills (``kernel`` is its mangled name), and ``("", line)``
+    for each warning, such as ptxas's performance warnings."""
+    out, kernel = [], None
+    for line in _ptxas.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+        elif "Performance Loss" in line or "warning" in line:
+            out.append(("", line.strip()))
+        elif kernel and ("registers" in line or "spill" in line):
+            out.append((kernel, line.split("info    :")[-1].strip()))
+    return out
+
+
+def spills(line: str) -> bool:
+    """Whether a :func:`compiler_report` line reports spilled registers."""
+    return "spill" in line and "0 bytes spill stores, 0 bytes spill loads" \
+        not in line
 
 
 def library(name: str, argtypes: dict) -> ctypes.CDLL:

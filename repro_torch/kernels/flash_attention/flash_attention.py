@@ -9,7 +9,8 @@ max ``m``, denominator ``l`` and accumulator in VMEM scratch; on the card
 one thread block owns (batch, q-head, block of q rows) and walks the KV
 blocks itself (``repro_torch/csrc/flash_attention.cu``): f32 inputs as
 three TF32 passes on ``mma.sync`` (``csrc/tf32x3.cuh``), bf16 inputs on
-``wgmma``.
+``wgmma`` (at head dim 128 a warp-specialized kernel: TMA loads, 128-key
+tiles, two consumer warpgroups taking turns on the tensor cores).
 
 Masked scores are ``-1e30``, not ``-inf``, as in the reference.  A KV block
 that is wholly masked for a row BEFORE its first live key gives that row
@@ -42,7 +43,9 @@ _ARGTYPES = {"flash_attention_launch": [ctypes.c_void_p] * 4
              "tf32_split_probe_launch": [ctypes.c_void_p] * 3
              + [ctypes.c_int, ctypes.c_void_p],
              "tf32_mma_rate_launch": [ctypes.c_void_p] + [ctypes.c_int] * 4
-             + [ctypes.c_void_p]}
+             + [ctypes.c_void_p],
+             # a launch's dynamic shared memory (chip_smoke.py reports it)
+             "flash_attention_smem_bytes": [ctypes.c_int] * 2}
 
 
 def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,

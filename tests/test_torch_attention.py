@@ -326,16 +326,24 @@ def test_decode_splits_cover_the_card():
     assert flash_decode_splits(4096, 8, 8) == (832, 5)
 
 
+def tc_block_k(d: int) -> int:
+    """The bf16 kernel's key tile (``csrc/flash_attention.cu``): 128 keys
+    in the warp-specialized dh-128 kernel, 64 in the others."""
+    return 128 if d == 128 else 64
+
+
 def tc_emulation(q, k, v, *, causal=True, window=None, q_offset=0,
-                 block_k=64, p_limbs=2):
+                 block_k=None, p_limbs=2):
     """The bf16 tensor-core kernel's arithmetic in plain PyTorch, f32 out
     (before the cast to bf16): scores from bf16 q . k products (exact in
-    f32) summed in f32, the online softmax in f32, and P split into
-    ``p_limbs`` bf16 limbs (hi = bf16(p), lo = bf16(p - hi)) before the
-    products with the bf16 values, each summed in f32."""
+    f32) summed in f32, the online softmax over the kernel's key tiles
+    (:func:`tc_block_k`) in f32, and P split into ``p_limbs`` bf16 limbs
+    (hi = bf16(p), lo = bf16(p - hi)) before the products with the bf16
+    values, each summed in f32."""
     from repro_torch.kernels.flash_attention.flash_attention import live_mask
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
+    block_k = block_k or tc_block_k(d)
     pad = (-skv) % block_k
     k32, v32 = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
                 for t in (k, v))
@@ -373,7 +381,11 @@ TC_CASES = [  # b, hq, hkv, sq, skv, d, q_offset, window
     (1, 2, 2, 64, 64, 16, 0, 8),          # window
     (1, 2, 2, 64, 64, 16, 0, 64),
     (1, 2, 2, 48, 192, 64, 144, 80),      # q_offset + window
-    (1, 2, 1, 40, 40, 128, 0, None),      # dh 128
+    (1, 2, 1, 40, 40, 128, 0, None),      # dh 128: one short tile
+    (1, 4, 1, 96, 384, 128, 288, None),   # dh 128, GQA 4:1, three tiles
+    (1, 2, 2, 256, 256, 128, 0, 100),     # dh 128, window across tiles
+    (1, 2, 2, 64, 448, 128, 384, None),   # dh 128, q_offset, four tiles
+    (1, 2, 1, 300, 300, 128, 0, None),    # dh 128, skv 300: a ragged tile
 ]
 
 
@@ -383,16 +395,21 @@ def test_tensor_core_arithmetic_matches_plain_and_reference(b, hq, hkv, sq,
                                                             window):
     """The bf16 kernel's arithmetic (bf16 products summed in f32, P in two
     bf16 limbs) at bf16 inputs: within TOL_BF16 of the plain version and of
-    the reference's Pallas kernel (interpret mode) on the same inputs."""
+    the reference's Pallas kernel (interpret mode) on the same inputs.  At
+    dh 128 the kernel walks 128-key tiles, so those cases span several
+    (the reference, in interpret mode, then takes blocks of 32 x 64 to keep
+    its grid short)."""
     q, k, v = _arrays((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
     bf = torch.bfloat16
     tq, tk, tv = _t(q, bf), _t(k, bf), _t(v, bf)
     kw = dict(causal=True, window=window, q_offset=off)
     got = tc_emulation(tq, tk, tv, **kw).to(bf).float().numpy()
     plain = flash_attention(tq, tk, tv, block_k=32, **kw).float().numpy()
+    ref_blocks = (dict(block_q=32, block_k=64) if d == 128
+                  else dict(block_q=16, block_k=16))
     want = np.asarray(ref_flash(*(jnp.array(a, jnp.bfloat16)
                                   for a in (q, k, v)),
-                                block_q=16, block_k=16, **kw), np.float32)
+                                **ref_blocks, **kw), np.float32)
     assert _maxdiff(got, plain) <= TOL_BF16
     assert _maxdiff(got, want) <= TOL_BF16
 

@@ -35,6 +35,8 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.serving.cnn_engine import (CNNServeEngine,  # noqa: E402
                                             ImageRequest)
 from repro_torch.serving.scheduler import RetryPolicy  # noqa: E402
+from test_torch_refcache import (cnn_init_numpy,  # noqa: E402
+                                 refcache_session)  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -52,8 +54,7 @@ def _configs(arch, policy):
 
 def _ref_params(ref_cfg, seed):
     """Reference params as numpy, with non-zero biases."""
-    params = jax.tree.map(np.asarray,
-                          ref_cnn.cnn_init(ref_cfg, jax.random.PRNGKey(seed)))
+    params = cnn_init_numpy(ref_cfg, seed)
     rng = np.random.default_rng(seed)
     for p in params:
         if "b" in p:

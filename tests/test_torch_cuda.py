@@ -340,10 +340,12 @@ def test_integer_kernels_issue_int8_mma(dev):
 
 @pytest.mark.cuda
 def test_float_kernels_issue_tensor_core_mma(dev):
-    """The bf16 attention kernel runs wgmma (HGMMA); the f32 attention
-    kernel and the mLSTM kernels run three TF32 passes on mma.sync (HMMA),
-    as do the float conv's bf16 schedules."""
+    """The bf16 attention kernel runs wgmma (HGMMA), its dh-128 kernel fed
+    by TMA (UTMALDG); the f32 attention kernel and the mLSTM kernels run
+    three TF32 passes on mma.sync (HMMA), as do the float conv's bf16
+    schedules."""
     assert build.sass_count("flash_attention", "HGMMA") > 0
+    assert build.sass_count("flash_attention", "UTMALDG") > 0
     for name in ("flash_attention", "mlstm_chunk", "implicit_conv_float"):
         assert build.sass_count(name, "HMMA") > 0, name
 
@@ -699,6 +701,12 @@ def test_reduced_model_pinned_path_on_card_matches_cpu(dev, arch, policy,
 
 ATTN_TOL_F32 = 2e-5
 ATTN_TOL_BF16 = 2e-2
+# bf16 attention also row by row: max|kernel - plain| in a row over the
+# row's max|plain|, two bf16 ulps (an ulp is at most 2^-7 of a value).
+# ATTN_TOL_BF16 is one ulp of the largest outputs, many of a late row's;
+# a plain version that skips one of the kernel's middle key tiles must
+# miss this limit.
+ATTN_ROW_TOL_BF16 = 2.0 ** -6
 
 
 def _strict_causal(orig):
@@ -720,8 +728,47 @@ def _mutated(module: str, name: str, make):
         setattr(mod, name, orig)
 
 
+def _skip_keys(first, count):
+    def make(orig):
+        def live(q_pos, k_pos, *, causal, window):
+            m = orig(q_pos, k_pos, causal=causal, window=window)
+            return m & ~((k_pos >= first) & (k_pos < first + count))[None, :]
+        return live
+    return make
+
+
+def _row_err(got, want):
+    got, want = got.float(), want.float()
+    den = want.abs().amax(-1).clamp_min(1e-30)
+    return float(((got - want).abs().amax(-1) / den).max())
+
+
 FA_MOD = "repro_torch.kernels.flash_attention.flash_attention"
 FD_MOD = "repro_torch.kernels.flash_decode.flash_decode"
+
+
+def _bf16_rows_vs_plain(q, k, v, *, causal=True, window=None, q_offset=0):
+    """bf16 flash attention within ATTN_ROW_TOL_BF16 of its plain version
+    row by row; where the last row's live keys span three of the kernel's
+    key tiles (128 keys at dh 128, else 64), the plain version skipping the
+    middle one must miss that limit."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    run = lambda: fa(q, k, v, causal=causal, window=window,
+                     q_offset=q_offset)
+    got = run()
+    with build.plain_versions():
+        want = run()
+    err = _row_err(got, want)
+    assert err <= ATTN_ROW_TOL_BF16, err
+    sq, skv, tile = q.shape[2], k.shape[2], 128 if q.shape[3] == 128 else 64
+    last = min(sq - 1 + q_offset, skv - 1) if causal else skv - 1
+    lo = max(0, last - window + 1) if window is not None else 0
+    if last // tile - lo // tile >= 2:
+        first = (lo // tile + last // tile) // 2 * tile
+        with _mutated(FA_MOD, "live_mask", _skip_keys(first, tile)), \
+                build.plain_versions():
+            miss = _row_err(got, run())
+        assert miss > ATTN_ROW_TOL_BF16, miss
 
 
 def _attn_inputs(shape_q, shape_kv, dtype, dev, seed):
@@ -774,6 +821,54 @@ def test_flash_attention_kernel_equals_plain(dev, b, hq, hkv, sq, skv, d,
                                 q_offset=off),
                      "flash_attention", ATTN_TOL_BF16,
                      _mutated(FA_MOD, "live_mask", _strict_causal))
+    _bf16_rows_vs_plain(qb, kb, vb, window=window, q_offset=off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,off,window", [
+    (1, 2, 2, 2048, 2048, 0, None),      # olmoe's layer cut to 2 heads
+    (1, 8, 2, 640, 640, 0, None),        # GQA 4:1 over five tiles
+    (1, 4, 4, 300, 1300, 1000, 512),     # window 512 with a q_offset
+    (2, 4, 4, 1, 130, 129, None),        # sq = 1
+    (1, 2, 1, 333, 333, 0, None),        # skv ragged (padded to 384)
+])
+def test_flash_attention_dh128_kernels_equal_plain(dev, b, hq, hkv, sq, skv,
+                                                   off, window):
+    """Head dim 128: the warp-specialized bf16 kernel (TMA, 128-key tiles,
+    ping-pong warpgroups) and the f32 kernel's 8-warp configuration, each
+    within its tolerance of the plain version, with the strict-causal
+    mutant required to miss; bf16 also row by row, where a skipped middle
+    key tile must miss."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _attn_inputs((b, hq, sq, 128), (b, hkv, skv, 128),
+                           torch.float32, dev, b + hq + sq + skv + 128)
+    for dtype, tol in ((torch.float32, ATTN_TOL_F32),
+                       (torch.bfloat16, ATTN_TOL_BF16)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        _kernel_vs_plain(lambda: fa(qq, kk, vv, causal=True, window=window,
+                                    q_offset=off),
+                         "flash_attention", tol,
+                         _mutated(FA_MOD, "live_mask", _strict_causal))
+    _bf16_rows_vs_plain(qq, kk, vv, window=window, q_offset=off)
+
+
+@pytest.mark.cuda
+def test_flash_attention_dh128_noncausal_and_unlive_rows(dev):
+    """Head dim 128, both dtypes: non-causal over several key tiles, and
+    rows with no live key (window 4 ending before the cache), which walk
+    every tile and average the values."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _attn_inputs((1, 4, 200, 128), (1, 2, 384, 128),
+                           torch.float32, dev, 12)
+    for dtype, tol in ((torch.float32, ATTN_TOL_F32),
+                       (torch.bfloat16, ATTN_TOL_BF16)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        _kernel_vs_plain(lambda: fa(qq, kk, vv, causal=False),
+                         "flash_attention", tol)
+        _kernel_vs_plain(lambda: fa(qq, kk, vv, causal=True, window=4,
+                                    q_offset=300), "flash_attention", tol)
+    _bf16_rows_vs_plain(qq, kk, vv, causal=False)
+    _bf16_rows_vs_plain(qq, kk, vv, window=4, q_offset=300)
 
 
 @pytest.mark.cuda
@@ -795,6 +890,8 @@ def test_flash_attention_kernel_noncausal_and_unlive_rows(dev):
     _kernel_vs_plain(lambda: fa(qb, kb, vb, causal=True, window=4,
                                 q_offset=300), "flash_attention",
                      ATTN_TOL_BF16)
+    _bf16_rows_vs_plain(qb, kb, vb, causal=False)
+    _bf16_rows_vs_plain(qb, kb, vb, window=4, q_offset=300)
 
 
 @pytest.mark.cuda

@@ -67,6 +67,8 @@ from repro_torch.kernels.kom_matmul import (bf16x3_matmul,  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.serving.cnn_engine import (CNNServeEngine,  # noqa: E402
                                             ImageRequest)
+from test_torch_refcache import (cached, cnn_init_numpy,  # noqa: E402
+                                 digest, refcache_session)  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -281,8 +283,7 @@ def test_implicit_float_pools_after_the_core():
 @functools.lru_cache(maxsize=None)
 def _ref_params(arch):
     ref_cfg = ref_reduced(ref_get_config(arch))
-    params = jax.tree.map(np.asarray,
-                          ref_cnn.cnn_init(ref_cfg, jax.random.PRNGKey(0)))
+    params = cnn_init_numpy(ref_cfg, 0)
     rng = np.random.default_rng(0)
     for p in params:
         if "b" in p:
@@ -295,12 +296,17 @@ def _ref_params(arch):
 
 @functools.lru_cache(maxsize=None)
 def _ref_logits(arch, policy, path):
+    """``jax.jit(cnn_forward)`` of the reference, once per run
+    (``test_torch_refcache``): each case that must be told apart from the
+    bf16x3 logits reads them."""
     params, x = _ref_params(arch)
     ref_cfg = ref_reduced(ref_get_config(arch)).replace(
         policy=rprec.MatmulPolicy(policy), conv_path=path)
-    return np.asarray(jax.jit(lambda p, v: ref_cnn.cnn_forward(
-        p, ref_cfg, v))([{k: jnp.asarray(v) for k, v in p.items()}
-                         for p in params], jnp.asarray(x)))
+    return cached("float-logits", (arch, policy, path, digest(params, x)),
+                  lambda: np.asarray(jax.jit(lambda p, v: ref_cnn.cnn_forward(
+                      p, ref_cfg, v))([{k: jnp.asarray(v)
+                                        for k, v in p.items()}
+                                       for p in params], jnp.asarray(x))))
 
 
 @pytest.mark.parametrize("policy,path", [("fp32", "systolic"),

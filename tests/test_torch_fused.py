@@ -46,6 +46,8 @@ from repro_torch.models import cnn  # noqa: E402
 from repro_torch.serving.cnn_engine import (CNNServeEngine,  # noqa: E402
                                             ImageRequest)
 from repro_torch.serving.scheduler import RetryPolicy  # noqa: E402
+from test_torch_refcache import (cnn_init_numpy,  # noqa: E402
+                                 refcache_session)  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -211,8 +213,7 @@ def _model_case(arch, policy, seed=0):
     ref_cfg = ref_reduced(ref_get_config(arch)).replace(
         policy=RefPolicy(policy))
     cfg = reduced(get_config(arch)).replace(policy=MatmulPolicy(policy))
-    params = jax.tree.map(np.asarray,
-                          ref_cnn.cnn_init(ref_cfg, jax.random.PRNGKey(seed)))
+    params = cnn_init_numpy(ref_cfg, seed)
     rng = np.random.default_rng(seed)
     for p in params:
         if "b" in p:

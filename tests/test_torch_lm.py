@@ -55,6 +55,8 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.weight_quant import quantize_params_inline  # noqa: E402
+from test_torch_refcache import (init_numpy,  # noqa: E402
+                                 refcache_session)  # noqa: F401
 
 REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
 TOL_FP32 = 1e-5
@@ -79,9 +81,12 @@ def _cfgs(arch, policy, **kw):
 
 
 def _params(ref_cfg, seed=1):
-    rp = ref_T.init_params(ref_cfg, jax.random.PRNGKey(seed))
-    return rp, lm_params_from_numpy(jax.tree.map(np.asarray, rp),
-                                    device="cpu")
+    """The reference's params (drawn once per run, ``test_torch_refcache``)
+    and the port's copy."""
+    tree = init_numpy("lm-init", (repr(ref_cfg), seed), lambda:
+                      ref_T.init_params(ref_cfg, jax.random.PRNGKey(seed)))
+    return (jax.tree.map(jnp.asarray, tree),
+            lm_params_from_numpy(tree, device="cpu"))
 
 
 def _rel(got, want) -> float:

@@ -52,6 +52,8 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.weight_quant import quantize_params_inline  # noqa: E402
+from test_torch_refcache import (init_numpy,  # noqa: E402
+                                 refcache_session)  # noqa: F401
 
 TOL_FFN_F32 = 1e-5
 TOL_FFN_BF16 = 2e-2
@@ -89,10 +91,10 @@ def _lm_params():
     both archs share them (``test_init_params_layout_matches_reference``
     checks the layouts); params are f32 whatever the policy."""
     ref_cfg, _ = _cfgs("olmoe-1b-7b", "fp32")
-    rp = jax.jit(lambda key: ref_T.init_params(ref_cfg, key))(
-        jax.random.PRNGKey(1))
-    return rp, lm_params_from_numpy(jax.tree.map(np.asarray, rp),
-                                    device="cpu")
+    tree = init_numpy("moe-init", (repr(ref_cfg), 1), lambda: jax.jit(
+        lambda key: ref_T.init_params(ref_cfg, key))(jax.random.PRNGKey(1)))
+    return (jax.tree.map(jnp.asarray, tree),
+            lm_params_from_numpy(tree, device="cpu"))
 
 
 @pytest.fixture(params=ARCHS)

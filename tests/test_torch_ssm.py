@@ -56,6 +56,8 @@ from repro_torch.models import layers, ssm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serving.weight_quant import quantize_params_inline  # noqa: E402
+from test_torch_refcache import (init_numpy,  # noqa: E402
+                                 refcache_session)  # noqa: F401
 
 TOL_OP = 2e-5
 #: policy -> (compute dtype, tolerance of max |logit|), as test_torch_lm.py
@@ -317,8 +319,11 @@ def test_slstm_decode_matches_forward():
 # -- the reduced model -----------------------------------------------------------
 
 def _params(ref_cfg, seed=1):
-    rp = ref_T.init_params(ref_cfg, jax.random.PRNGKey(seed))
-    return rp, _carry(rp)
+    """The reference's params (drawn once per run, ``test_torch_refcache``)
+    and the port's copy."""
+    tree = init_numpy("lm-init", (repr(ref_cfg), seed), lambda:
+                      ref_T.init_params(ref_cfg, jax.random.PRNGKey(seed)))
+    return jax.tree.map(jnp.asarray, tree), _carry(tree)
 
 
 def _tokens(cfg, shape, seed):

@@ -36,6 +36,8 @@ from repro_torch.kernels.conv2d import ops as pops  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.serving.cnn_engine import (CNNServeEngine,  # noqa: E402
                                             ImageRequest)
+from test_torch_refcache import (cached, cnn_init_numpy,  # noqa: E402
+                                 digest, refcache_session)  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -173,8 +175,7 @@ def test_native_variant_refuses_a_qweight():
 # ---------------------------------------------------------------------------
 
 def _ref_params(ref_cfg, seed):
-    params = jax.tree.map(np.asarray,
-                          ref_cnn.cnn_init(ref_cfg, jax.random.PRNGKey(seed)))
+    params = cnn_init_numpy(ref_cfg, seed)
     rng = np.random.default_rng(seed)
     for p in params:
         if "b" in p:
@@ -191,17 +192,23 @@ def _images(cfg, n, seed):
 
 @functools.lru_cache(maxsize=None)
 def _model_case(arch, policy):
-    """(port cfg, port QWeight params, images, jitted reference logits)."""
+    """(port cfg, port QWeight params, images, jitted reference logits);
+    the reference's logits once per run (``test_torch_refcache``)."""
     ref_cfg = ref_reduced(ref_get_config(arch)).replace(
         policy=RefPolicy(policy), conv_path="systolic")
     cfg = reduced(get_config(arch)).replace(policy=MatmulPolicy(policy),
                                             conv_path="systolic")
     params = _ref_params(ref_cfg, seed=0)
     x = _images(cfg, 2, seed=1)
-    qp_ref = ref_cnn.cnn_quantize_params(
-        [{k: jnp.asarray(v) for k, v in p.items()} for p in params], ref_cfg)
-    want = np.asarray(jax.jit(lambda p, v: ref_cnn.cnn_forward(
-        p, ref_cfg, v))(qp_ref, jnp.asarray(x)))
+
+    def reference():
+        qp_ref = ref_cnn.cnn_quantize_params(
+            [{k: jnp.asarray(v) for k, v in p.items()} for p in params],
+            ref_cfg)
+        return np.asarray(jax.jit(lambda p, v: ref_cnn.cnn_forward(
+            p, ref_cfg, v))(qp_ref, jnp.asarray(x)))
+    want = cached("systolic-logits", (arch, policy, digest(params, x)),
+                  reference)
     qp = cnn.cnn_quantize_params(params_from_numpy(params, device="cpu"),
                                  cfg)
     return cfg, qp, x, want

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Proof on an NVIDIA GPU that the port's AlexNet, VGG16, granite-3-2b,
-xlstm-125m and olmoe-1b-7b paths run.
+xlstm-125m, olmoe-1b-7b, internvl2-26b and whisper-large-v3 paths run.
 
     python3 chip_smoke.py
 
@@ -233,9 +233,42 @@ Phases, each fatal on failure:
     in the compute dtype, as in the reference);
 22. reduced olmoe-1b-7b as phase 13, with every (token, layer) routed
     alike on the card and the CPU;
-23. print the card line, a ``kernels`` JSON line (launches: the serving
-    runs, phases 6c-6f, the fp32 yardstick forward, the granite and olmoe
-    prefill forwards and the two ops' own runs, each counted from 0;
+23. the flash-attention kernel at one full-width internvl2-26b prefill
+    layer (b 4, hq 48, hkv 8, sq = skv = 2048, dh 128, causal: six q
+    heads a kv head on the dh-128 kernels) in f32 and bf16, as phase 19;
+24. full-width internvl2-26b (48 layers, random weights, seed 0) with
+    bf16 params (19.863 B: 79.5 GB in the config's f32 leave no room on
+    one card, 39.7 GB in bf16): the prefill step (flash kernel on) on 4 x
+    2048 tokens with seeded ``img_embeds`` (4, 256, 6144) under
+    ``native_bf16`` -- 48 flash launches, tokens/s, a profile -- its
+    logits within PREFILL_TOL_BF16 of the same step on the plain attention
+    path (under ``fp32``, one sequence: within PREFILL_TOL_FP32), and
+    other token ids at the 256 image positions giving the same logits bit
+    for bit;
+25. serve full-width internvl2-26b as phase 12 (the dense stack, no
+    images, as in the reference; under ``kom_int14`` the engine quantizes
+    the stacked weights one layer at a time: 337 limb-GEMM launches per
+    serve_step, q, k, v, o, gate, up and down per layer and the untied
+    head);
+26. the limb GEMM at whisper-large-v3's encoder shapes (m = 4 x 1500 rows,
+    q/k/v/o 1280 x 1280, up 1280 x 5120, down 5120 x 1280, with a bias)
+    exact against its plain version, beside ``torch._int_mm`` and the
+    bound; then full-width whisper-large-v3 (32 + 32 layers, f32 params,
+    flash kernel off: 1500 frames fill no 128-key block and a non-causal
+    flash call refuses them, as in the reference) under ``native_bf16``,
+    ``fp32`` and ``kom_int14``: the prefill step on seeded ``audio_embeds``
+    (4, 1500, 1280) and 4 x 448 tokens (tokens/s; under ``kom_int14`` 513
+    limb-GEMM launches and the logits equal to the plain-version forward
+    bit for bit), ``encode`` (256) and 12 greedy decode steps at batch 4
+    (257 each) held against the teacher-forced forward of the tokens they
+    were fed within DECODE_TOL of max |logit|;
+27. reduced internvl2-26b and whisper-large-v3 (flash kernel on; whisper's
+    16 frames fill one key block) as phase 13, with their embeddings,
+    whisper encoding before its decode steps;
+28. print the card line, a ``kernels`` JSON line (launches: the serving
+    runs, phases 6c-6f, the fp32 yardstick forward, the granite, olmoe,
+    internvl2 and whisper prefill forwards, whisper's encode and decode
+    steps and the two ops' own runs, each counted from 0;
     ``library_ms`` one PyTorch call computing the same function, else null;
     ``raw_product_ms`` the implicit and Winograd convs' raw integer
     product, else null) and, last, ``{"ok": true, "device": ...}``.
@@ -245,6 +278,7 @@ Exits non-zero, printing no result, without a CUDA device or without the
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -2395,16 +2429,16 @@ def phase_compare_attention(torch) -> tuple:
 
 
 def limb_gemm_shapes(cfg) -> tuple:
-    """The limb GEMMs of one dense or MoE forward or serve_step under
+    """The limb GEMMs of one dense, VLM or MoE forward or serve_step under
     kom_int14, as ``(label, (k, n), count)``: q, k, v and o in each layer
-    (dense: and the MLP's projections; MoE: the router and the experts are
-    not on the limb substrate, as in the reference), then the head (tied
-    or untied, ``padded_vocab`` wide).  Projections of one shape share a
-    row, e.g. granite-3-2b's ``q/o`` (2048, 2048) x 80."""
+    (dense, VLM: and the MLP's projections; MoE: the router and the
+    experts are not on the limb substrate, as in the reference), then the
+    head (tied or untied, ``padded_vocab`` wide).  Projections of one
+    shape share a row, e.g. granite-3-2b's ``q/o`` (2048, 2048) x 80."""
     d, dq = cfg.d_model, cfg.n_heads * cfg.head_dim
     dkv = cfg.n_kv_heads * cfg.head_dim
     rows = [("q", (d, dq)), ("k", (d, dkv)), ("v", (d, dkv)), ("o", (dq, d))]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         rows += [("gate", (d, cfg.d_ff))] if cfg.mlp == "swiglu" else []
         rows += [("up", (d, cfg.d_ff)), ("down", (cfg.d_ff, d))]
     by_shape = {}
@@ -2485,19 +2519,22 @@ def phase_compare_lm_gemm(torch, arch: str = "granite-3-2b") -> dict:
     return served
 
 
-def lm_params(torch, arch: str = "granite-3-2b"):
-    """Full-width float params of ``arch`` on the card (seed 0)."""
+def lm_params(torch, arch: str = "granite-3-2b", **cfg_kw):
+    """Full-width float params of ``arch`` on the card (seed 0; ``cfg_kw``
+    overrides the config, e.g. its ``param_dtype``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
 
-    cfg = get_config(arch)
+    cfg = get_config(arch, **cfg_kw)
     t0 = time.perf_counter()
     params = transformer.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in _leaves(params))
-    log(f"[{arch}] {n / 1e9:.3f} B params (f32) on the card in "
-        f"{time.perf_counter() - t0:.2f}s")
+    leaves = list(_leaves(params))
+    n = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    log(f"[{arch}] {n / 1e9:.3f} B params ({cfg.param_dtype}, {gb:.1f} GB) "
+        f"on the card in {time.perf_counter() - t0:.2f}s")
     return params
 
 
@@ -2509,22 +2546,24 @@ def _leaves(tree):
         yield tree
 
 
-def prefill_bf16(torch, card: str, params, arch: str, ranges=None):
+def prefill_bf16(torch, card: str, params, arch: str, ranges=None,
+                 embeds=None, **cfg_kw):
     """The ``native_bf16`` prefill step of ``arch`` with the flash kernel
-    on 4 x 2048 tokens: one flash launch per layer (counted from 0 around
-    one forward), finite logits, tokens/s over 3 forwards and a profile
-    (``ranges``: see :func:`profile_step`).  Returns (cfg, batch, the
-    launches)."""
+    on 4 x 2048 tokens (and ``embeds``, more entries of the batch): one
+    flash launch per layer (counted from 0 around one forward), finite
+    logits, tokens/s over 3 forwards and a profile (``ranges``: see
+    :func:`profile_step`).  ``cfg_kw`` overrides the config.  Returns
+    (cfg, batch, the launches)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.step_fns import make_prefill_step
 
-    cfg = get_config(arch, use_flash_kernel=True)
+    cfg = get_config(arch, use_flash_kernel=True, **cfg_kw)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (4, 2048)).astype(np.int64)).cuda()
-    batch = {"tokens": tokens}
+    batch = {"tokens": tokens, **(embeds or {})}
     step = make_prefill_step(cfg)
     step(params, batch)
     torch.cuda.synchronize()
@@ -2612,14 +2651,29 @@ class _Recorder:
 
 def limb_gemms_per_step(cfg) -> int:
     """Limb-GEMM launches of one forward or serve_step under kom_int14:
-    dense and MoE -- :func:`limb_gemm_shapes`; xLSTM -- 6 prequantized
-    projections plus ``w_if`` (``kom_q_dot``) per mLSTM, ``w_in`` and
-    ``w_down`` per sLSTM; then the head."""
+    dense, VLM and MoE -- :func:`limb_gemm_shapes`; xLSTM -- 6
+    prequantized projections plus ``w_if`` (``kom_q_dot``) per mLSTM,
+    ``w_in`` and ``w_down`` per sLSTM; then the head; encoder-decoder --
+    :func:`encdec_limb_gemms`' forward."""
     if cfg.family == "ssm":
         n_m = cfg.xlstm_group.count("m") * cfg.n_xlstm_groups
         n_s = cfg.xlstm_group.count("s") * cfg.n_xlstm_groups
         return 7 * n_m + 2 * n_s + 1
+    if cfg.family == "encdec":
+        return encdec_limb_gemms(cfg)["forward"]
     return sum(count for _, _, count in limb_gemm_shapes(cfg))
+
+
+def encdec_limb_gemms(cfg) -> dict:
+    """Limb-GEMM launches of an encoder-decoder under kom_int14: an
+    encoder layer's q, k, v, o, up and down; a decoder layer's
+    self-attention q, k, v, o, the cross-attention's q and o and its K/V
+    of the encoder output, up and down; the tied head.  ``encode`` runs
+    the encoder and every decoder layer's cross K/V, a decode ``step`` the
+    decoder on the cache (its cross K/V read from it) and the head."""
+    enc, dec = 6 * cfg.n_enc_layers, cfg.n_layers
+    return {"forward": enc + 10 * dec + 1, "encode": enc + 2 * dec,
+            "step": 8 * dec + 1}
 
 
 def limb_gemm_step_bound_ms(cfg, m: int) -> float:
@@ -2630,10 +2684,13 @@ def limb_gemm_step_bound_ms(cfg, m: int) -> float:
 
 
 def phase_serve_lm(torch, card: str, params, policy: str,
-                   arch: str = "granite-3-2b") -> dict:
-    """Phases 12 and 17: full-width ``arch`` through ServeEngine: slots 4,
-    max_len 512, 8 requests by the launcher's prompt rule, max_new 12; two
-    requests re-served alone must give the same greedy tokens."""
+                   arch: str = "granite-3-2b", donate: bool = False,
+                   **cfg_kw) -> dict:
+    """Phases 12, 17, 21 and 25: full-width ``arch`` through ServeEngine:
+    slots 4, max_len 512, 8 requests by the launcher's prompt rule,
+    max_new 12; two requests re-served alone must give the same greedy
+    tokens.  ``donate``: the engine quantizes ``params`` in place (they
+    are spent); ``cfg_kw`` overrides the config."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2642,7 +2699,11 @@ def phase_serve_lm(torch, card: str, params, policy: str,
     from repro_torch.serving.engine import Request, ServeEngine
 
     tag = f"serve_lm {arch} {policy}"
-    cfg = get_config(arch, policy=MatmulPolicy(policy))
+    cfg = get_config(arch, policy=MatmulPolicy(policy), **cfg_kw)
+    # an earlier run's engine lives on in reference cycles (its recorder
+    # and counters wrap its methods) and holds its params: collect it
+    gc.collect()
+    torch.cuda.empty_cache()
     if cfg.family == "moe":
         # decode routes every slot row as one group: batched == solo only
         # while no expert can overflow (slots <= cap)
@@ -2654,9 +2715,12 @@ def phase_serve_lm(torch, card: str, params, policy: str,
         if cap < 4:
             raise SystemExit(f"[{tag}] capacity {cap} < 4 slots")
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, params, slots=4, max_len=512, device="cuda")
+    eng = ServeEngine(cfg, params, slots=4, max_len=512, device="cuda",
+                      donate=donate)
     torch.cuda.synchronize()
-    log(f"[{tag}] engine built in {time.perf_counter() - t0:.2f}s")
+    log(f"[{tag}] engine built in {time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB allocated "
+        "at the peak so far")
     rng = np.random.default_rng(0)
     prompts = []
     for _ in range(8):
@@ -2719,9 +2783,25 @@ def phase_serve_lm(torch, card: str, params, policy: str,
     return launches
 
 
+def family_embeds(torch, cfg, b: int) -> dict:
+    """The batch entries beside the tokens that ``cfg``'s family reads,
+    seeded, on the CPU: a VLM's ``img_embeds`` (b, n_img_tokens, d), an
+    encoder-decoder's ``audio_embeds`` (b, enc_seq, d); none otherwise."""
+    gen = torch.Generator().manual_seed(4)
+    if cfg.family == "vlm":
+        return {"img_embeds": torch.randn(
+            (b, cfg.n_img_tokens, cfg.d_model), generator=gen)}
+    if cfg.family == "encdec":
+        return {"audio_embeds": torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                            generator=gen)}
+    return {}
+
+
 def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
-    """Phases 13, 18 and 22: reduced ``arch`` (granite, olmoe: flash kernel
-    on) under fp32 and kom_int14 (f32 compute, weights quantized once as
+    """Phases 13, 18, 22 and 27: reduced ``arch`` (all but the xLSTM with
+    the flash kernel on; internvl2 with its image embeddings, whisper
+    encoding its 16 frames, which fill one key block, before the decode)
+    under fp32 and kom_int14 (f32 compute, weights quantized once as
     the engine does): the forward and four decode steps on the card
     against the plain versions on the CPU (which the CPU tests hold against
     the JAX reference); for MoE every (token, layer) routed alike on both
@@ -2740,6 +2820,7 @@ def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
              ("kom_int14", REDUCED_TOL_KOM, False)]
     if arch == XLSTM:
         cases.append(("kom_int14", FLOAT_WEIGHTS_TOL, True))
+    to_card = lambda d: {k: v.cuda() for k, v in d.items()}
     for policy, tol, float_weights in cases:
         cfg = reduced(get_config(arch)).replace(
             policy=MatmulPolicy(policy), compute_dtype="float32",
@@ -2753,17 +2834,23 @@ def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
         seq = 32 if cfg.family == "moe" else 40
         tokens = torch.randint(0, cfg.vocab_size, (2, seq),
                                generator=torch.Generator().manual_seed(3))
+        batch = {"tokens": tokens, **family_embeds(torch, cfg, 2)}
         what = policy + (" float weights" if float_weights else "")
         cpu_r, card_r = moe_routing(), moe_routing()
         with cpu_r:
-            want, _ = transformer.forward(params, cfg, {"tokens": tokens})
+            want, _ = transformer.forward(params, cfg, batch)
         build.reset_launches()
         with card_r:
-            got, _ = transformer.forward(gp, cfg, {"tokens": tokens.cuda()})
+            got, _ = transformer.forward(gp, cfg, to_card(batch))
         launches = build.launch_counts()
         rel = float((got.cpu() - want).abs().max() / want.abs().max())
         cache = transformer.init_cache(cfg, 2, 8, device="cpu")
         gcache = transformer.init_cache(cfg, 2, 8, device="cuda")
+        if cfg.family == "encdec":
+            cache = transformer.encode(params, cfg, batch["audio_embeds"],
+                                       cache)
+            gcache = transformer.encode(
+                gp, cfg, batch["audio_embeds"].cuda(), gcache)
         drel = 0.0
         for t in range(4):
             with cpu_r:
@@ -2785,15 +2872,14 @@ def phase_reduced_lm(torch, arch: str = "granite-3-2b") -> None:
         miss = None
         if float_weights:
             with base_bits(6):
-                bad, _ = transformer.forward(gp, cfg,
-                                             {"tokens": tokens.cuda()})
+                bad, _ = transformer.forward(gp, cfg, to_card(batch))
             miss = float((bad.cpu() - want).abs().max() / want.abs().max())
         log(f"[reduced_lm] {arch} (reduced) {what}: card vs CPU "
             f"forward {rel:.3e}, decode {drel:.3e} (tol {tol}), forward "
             f"launches {launches}"
             + ("" if miss is None else
                f"; base_bits=6 on the card {miss:.3e} away (must miss)"))
-        want_l = {"flash_attention": cfg.n_layers} \
+        want_l = {"flash_attention": cfg.n_layers + cfg.n_enc_layers} \
             if cfg.use_flash_kernel else {}
         if policy == "kom_int14":
             want_l["kom_matmul"] = limb_gemms_per_step(cfg)
@@ -3264,6 +3350,273 @@ def _annotate_xlstm() -> annotated:
 #: (their time loop and their two projections).
 XLSTM_RANGES = ("xlstm::mlstm_chunk_loop", "xlstm::slstm_block")
 
+# ---------------------------------------------------------------------------
+# Phases 23-27: the VLM and encoder-decoder families, full-width
+# internvl2-26b and whisper-large-v3.
+# ---------------------------------------------------------------------------
+
+INTERNVL = "internvl2-26b"
+WHISPER = "whisper-large-v3"
+#: internvl2-26b's params are 19.863 B: 79.5 GB in the config's f32, too
+#: much for one 80 GB card with activations; 39.7 GB in bf16.
+INTERNVL_KW = {"param_dtype": "bfloat16"}
+#: Full-width internvl2 native_bf16 prefill, flash kernel against the
+#: plain attention path (``use_flash_kernel=False``: the whole score
+#: matrix, softmax in f32), of max |logit|: the CPU tests' native_bf16
+#: limit (``tests/test_torch_lm.py`` TOL_BF16), a few bf16 ulps carried
+#: through 48 layers.
+PREFILL_TOL_BF16 = 3e-2
+#: Full-width whisper decode against its teacher-forced forward, of max
+#: |logit|: fp32 as PREFILL_TOL_FP32 (f32 sums in other orders through 64
+#: layers); under native_bf16 and kom_int14 (both in bf16 compute) the
+#: CPU tests' native_bf16 limit: a step's GEMMs (4 rows) round their bf16
+#: outputs apart from the forward's (48 rows), an ulp now and then, and
+#: kom_int14 also quantizes each step's activations per tensor apart.
+#: The reference's reduced decode test holds elementwise rtol = atol =
+#: 2e-2; at full width the 32 bf16 decoder layers miss that (1.29e-2 of
+#: max |logit| under native_bf16, some logits off by more than 2e-2).
+DECODE_TOL = {"fp32": 1e-4, "native_bf16": 3e-2, "kom_int14": 3e-2}
+
+
+def phase_compare_attention_internvl(torch) -> None:
+    """Phase 23: the flash-attention kernel at one full-width internvl2-26b
+    prefill layer (b 4, hq 48, hkv 8: six q heads a kv head, sq = skv =
+    2048, dh 128, causal) in f32 and bf16 against its plain version, as
+    phase 19 (:func:`attention_case`: tolerances, bf16 row by row, the
+    mutants, SDPA masked and ``is_causal=True``, the bound)."""
+    from repro_torch.kernels import build
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn((4, 48, 2048, 128), generator=gen, device="cuda")
+    k, v = (torch.randn((4, 8, 2048, 128), generator=gen, device="cuda")
+            for _ in range(2))
+    attention_case(torch, build, {}, "internvl2 prefill 4x2048", q, k, v)
+    attention_case(torch, build, {}, "internvl2 prefill 4x2048",
+                   *(t.bfloat16() for t in (q, k, v)))
+
+
+def phase_prefill_internvl(torch, card: str, params) -> dict:
+    """Phase 24: the internvl2-26b prefill step (``use_flash_kernel=True``,
+    bf16 params) on 4 x 2048 tokens with seeded ``img_embeds`` (4, 256,
+    6144) under native_bf16: 48 flash launches, tokens/s, a profile; the
+    logits within PREFILL_TOL_BF16 of the same step on the plain attention
+    path, and under fp32 (one sequence) within PREFILL_TOL_FP32; other
+    token ids at the 256 image positions give the same logits bit for bit
+    (the image embeddings replace them)."""
+    import numpy as np
+
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.launch.step_fns import make_prefill_step
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    img = torch.randn((4, 256, 6144), generator=gen, device="cuda")
+    cfg, batch, launches = prefill_bf16(
+        torch, card, params, INTERNVL, embeds={"img_embeds": img},
+        **INTERNVL_KW)
+    step = make_prefill_step(cfg)
+    got = step(params, batch)
+    want = make_prefill_step(cfg.replace(use_flash_kernel=False))(params,
+                                                                  batch)
+    rel = float((got - want).abs().max() / want.abs().max())
+    del want
+    log(f"[internvl2] native_bf16: flash kernel vs the plain attention path "
+        f"max rel err {rel:.3e} of max|logit| (tol {PREFILL_TOL_BF16})")
+    # fp32 (TF32 off) on one sequence: the f32 kernel against the same
+    # plain path, where rounding cannot hide a fault
+    one = {k: v[:1] for k, v in batch.items()}
+    f32 = cfg.replace(policy=MatmulPolicy.FP32, compute_dtype="float32")
+    got32 = make_prefill_step(f32)(params, one)
+    want32 = make_prefill_step(f32.replace(use_flash_kernel=False))(params,
+                                                                    one)
+    rel32 = float((got32 - want32).abs().max() / want32.abs().max())
+    del got32, want32
+    log(f"[internvl2] fp32 (TF32 off), 1 x 2048 tokens: flash kernel vs "
+        f"the plain attention path max rel err {rel32:.3e} of max|logit| "
+        f"(tol {PREFILL_TOL_FP32})")
+    tokens = batch["tokens"].clone()
+    tokens[:, :cfg.n_img_tokens] = torch.from_numpy(
+        np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (4, cfg.n_img_tokens))).cuda()
+    same = torch.equal(step(params, dict(batch, tokens=tokens)), got)
+    log(f"[internvl2] other token ids at the {cfg.n_img_tokens} image "
+        f"positions: logits bit for bit the same: {same}")
+    if not (rel <= PREFILL_TOL_BF16 and rel32 <= PREFILL_TOL_FP32
+            and same):
+        raise SystemExit(f"[internvl2] prefill: kernel vs plain {rel} "
+                         f"(fp32 {rel32}), image positions ignored {same}")
+    del got, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_compare_whisper_gemm(torch) -> None:
+    """Phase 26a: the limb GEMM at whisper-large-v3's encoder shapes (m =
+    4 x 1500 rows; q/k/v/o d x d, up d x d_ff, down d_ff x d) with row and
+    column scales and a bias, as ``kom_q_dot`` calls it under kom_int14:
+    exact against its plain version, timed beside its three int8 passes
+    through ``torch._int_mm`` and the bound; the sums over one encoder
+    forward weight each shape by its count."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.substrate import kom_qmax
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kom_matmul import kom_matmul_int, kom_split_k
+
+    cfg = get_config(WHISPER)
+    d, d_ff, n_enc = cfg.d_model, cfg.d_ff, cfg.n_enc_layers
+    gen = torch.Generator().manual_seed(8)
+    qmax, m = kom_qmax(7), 4 * cfg.enc_seq
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for label, (k, n), count in (("q/k/v/o", (d, d), 4 * n_enc),
+                                 ("up", (d, d_ff), n_enc),
+                                 ("down", (d_ff, d), n_enc)):
+        a = torch.randint(-qmax, qmax + 1, (m, k), generator=gen).to(
+            torch.int16).cuda()
+        b = torch.randint(-qmax, qmax + 1, (k, n), generator=gen).to(
+            torch.int16).cuda()
+        rs = (torch.rand(m, generator=gen) * 1e-3 + 1e-4).cuda()
+        cs = (torch.rand(n, generator=gen) * 1e-3 + 1e-4).cuda()
+        bias = torch.randn(n, generator=gen).cuda()
+        run = lambda a=a, b=b, rs=rs, cs=cs, bias=bias: kom_matmul_int(
+            a, b, variant="karatsuba", base_bits=7, row_scale=rs,
+            col_scale=cs, bias=bias)
+        ops, nbytes = limb_gemm_work(m, k, n)
+        nbytes += 4 * n
+        plan = kom_split_k(m, k, n)
+        log(f"[compare] kom_matmul {WHISPER} encoder {label} ({k}x{n}) "
+            f"m={m} + bias: split {plan['splits']} x {plan['group_k']} K "
+            f"entries, {plan['m_tile']}-row tile, {plan['blocks']} blocks")
+        lib_ms = int_mm_passes_ms(torch, a, b, "karatsuba", 7)
+        _, ms, plain_ms = compare_call(
+            torch, build, "kom_int14", "kom_matmul", f"whisper {label}",
+            run, ops, nbytes, lib_ms)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms),
+                       ("bound_ms", bound_ms(ops, nbytes, "int8")[0])):
+            tot[key] = None if v is None or tot[key] is None \
+                else tot[key] + count * v
+    log(f"[compare] kom_matmul per {WHISPER} encoder forward "
+        f"({6 * n_enc} calls, m = {m}): "
+        + ", ".join(f"{k} {v if v is None else round(v, 4)}"
+                    for k, v in tot.items()))
+
+
+def phase_whisper(torch, card: str, params) -> dict:
+    """Phase 26b: whisper-large-v3 (f32 params, ``use_flash_kernel=False``:
+    the encoder's 1500 frames fill no 128-key block, and a non-causal
+    flash call refuses them in both packages) under native_bf16, fp32 (TF32
+    off) and kom_int14.  The prefill step on seeded ``audio_embeds`` (4,
+    1500, 1280) and 4 x 448 decoder tokens: finite logits, tokens/s, under
+    kom_int14 513 limb-GEMM launches a forward and the logits equal to
+    the plain-version forward's bit for bit (native_bf16: a profile).
+    Then ``encode`` (256 limb GEMMs under kom_int14) and 12 greedy
+    ``make_serve_step`` steps at batch 4 (257 a step), held against the
+    teacher-forced forward of the tokens they were fed (DECODE_TOL)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import MatmulPolicy
+    from repro_torch.kernels import build
+    from repro_torch.launch.step_fns import (make_prefill_step,
+                                             make_serve_step)
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    audio = torch.randn((4, 1500, 1280), generator=gen, device="cuda")
+    launches = {}
+    for policy in ("native_bf16", "fp32", "kom_int14"):
+        tag = f"{WHISPER} {policy}"
+        cfg = get_config(WHISPER, policy=MatmulPolicy(policy))
+        if policy == "fp32":
+            cfg = cfg.replace(compute_dtype="float32")
+        counts = encdec_limb_gemms(cfg)
+        kom = policy == "kom_int14"
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (4, 448)).astype(np.int64)).cuda()
+        batch = {"tokens": tokens, "audio_embeds": audio}
+        step = make_prefill_step(cfg)
+        step(params, batch)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        logits = step(params, batch)
+        torch.cuda.synchronize()
+        got = build.launch_counts()
+        check_launches(f"prefill {tag}", got,
+                       {"kom_matmul": counts["forward"]} if kom else {})
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        if logits.shape != (4, 448, cfg.padded_vocab) or \
+                not torch.isfinite(logits).all():
+            raise SystemExit(f"[{tag}] bad logits {tuple(logits.shape)}")
+        if kom:
+            with build.plain_versions():
+                plain = step(params, batch)
+            err = float((logits - plain).abs().max())
+            same = torch.equal(logits, plain)
+            log(f"[{tag}] prefill: limb kernel vs plain-version forward "
+                f"max abs err {err} (bit for bit: {same})")
+            if not same:
+                raise SystemExit(f"[{tag}] kernel forward != plain ({err})")
+            del plain
+        del logits
+        n_it = 3
+        t0 = time.perf_counter()
+        for _ in range(n_it):
+            step(params, batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n_it
+        log(f"[prefill] {tag} on {card}: {1e3 * dt:.1f} ms per prefill of "
+            f"4 x 1500 frames + 4 x 448 tokens ({4 * 448 / dt:.0f} decoder "
+            f"tokens/s, {4 * 1500 / dt:.0f} frames/s)")
+        if policy == "native_bf16":
+            profile_step(torch, lambda: step(params, batch).sum().item(),
+                         f"one {WHISPER} native_bf16 prefill step")
+        # encode, then 12 greedy decode steps
+        serve = make_serve_step(cfg)
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = transformer.encode(
+            params, cfg, audio, transformer.init_cache(cfg, 4, 16,
+                                                       device="cuda"))
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc_launches = build.launch_counts()
+        tok, fed, outs = tokens[:, :1], [], []
+        t0 = time.perf_counter()
+        for t in range(12):
+            fed.append(tok)
+            lg, cache = serve(params, cache, tok, t)
+            outs.append(lg[:, 0])
+            tok = lg[:, 0, :cfg.vocab_size].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        dec_s = (time.perf_counter() - t0) / 12
+        dec_launches = build.launch_counts()
+        if kom:
+            check_launches(f"encode {tag}", enc_launches,
+                           {"kom_matmul": counts["encode"]})
+            check_launches(f"decode {tag}", dec_launches, {
+                "kom_matmul": counts["encode"] + 12 * counts["step"]})
+        for name, n in dec_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        dec = torch.stack(outs, 1)
+        tf = step(params, {"tokens": torch.cat(fed, 1),
+                           "audio_embeds": audio})
+        d = (dec - tf).abs()
+        rel = float(d.max() / tf.abs().max())
+        log(f"[decode] {tag} on {card}: encode {1e3 * enc_s:.1f} ms, "
+            f"{1e3 * dec_s:.1f} ms a decode step at batch 4 "
+            f"({4 / dec_s:.1f} tokens/s); decode vs the teacher-forced "
+            f"forward max rel err {rel:.3e} of max|logit| (tol "
+            f"{DECODE_TOL[policy]}; max abs {float(d.max()):.3e}, "
+            f"max|logit| {float(tf.abs().max()):.3f}), greedy tokens "
+            f"{[int(t) for t in torch.cat(fed, 1)[0, 1:]]}")
+        if not rel <= DECODE_TOL[policy] or not torch.isfinite(dec).all():
+            raise SystemExit(f"[{tag}] decode != forward ({rel})")
+        del dec, tf, cache, outs
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3348,6 +3701,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_reduced_lm(torch, OLMOE)
     log(f"[moe] phases 19-22 took {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_compare_attention_internvl(torch)
+    internvl = lm_params(torch, INTERNVL, **INTERNVL_KW)
+    add(phase_prefill_internvl(torch, card, internvl))
+    add(phase_serve_lm(torch, card, internvl, "native_bf16", INTERNVL,
+                       **INTERNVL_KW))
+    # the bf16 tree and its QWeights do not fit side by side: the engine
+    # quantizes the tree in place, its last use
+    torch.cuda.reset_peak_memory_stats()
+    add(phase_serve_lm(torch, card, internvl, "kom_int14", INTERNVL,
+                       donate=True, **INTERNVL_KW))
+    del internvl
+    torch.cuda.empty_cache()
+    phase_compare_whisper_gemm(torch)
+    whisper = lm_params(torch, WHISPER)
+    add(phase_whisper(torch, card, whisper))
+    del whisper
+    torch.cuda.empty_cache()
+    for arch in (INTERNVL, WHISPER):
+        phase_reduced_lm(torch, arch)
+    log(f"[vlm/encdec] phases 23-27 took {time.perf_counter() - t0:.1f}s")
     kernels = []
     for name in KERNELS:
         s = summary[name]

@@ -342,15 +342,27 @@ def quantize_weight(w: torch.Tensor, *, base_bits: int = 7,
     contraction dims (stacked transformer weights (L, k, n) use 1); the
     scales then keep them, shape (L, 1, n), so the QWeight slices per layer.
     The scale is a TRUE division ``max(amax, 1e-12) / qmax``: the reference
-    quantizes weights eagerly at engine build, outside any ``jit``.
+    quantizes weights eagerly at engine build, outside any ``jit``.  A
+    stack is quantized one entry at a time into the stacked result (the
+    same values and scales, with one layer's f32 temporaries: a stacked
+    (48, 6144, 16384) weight is 19 GB in f32).
     """
+    if stack_axes:
+        values = torch.empty(w.shape, dtype=torch.int16, device=w.device)
+        scale = torch.empty(w.shape[:stack_axes]
+                            + (1,) * (w.ndim - stack_axes - 1)
+                            + w.shape[-1:], dtype=torch.float32,
+                            device=w.device)
+        for i in range(w.shape[0]):
+            qi = quantize_weight(w[i], base_bits=base_bits,
+                                 stack_axes=stack_axes - 1)
+            values[i] = qi.values
+            scale[i] = qi.scale.reshape(scale.shape[1:])
+        return QWeight(values=values, scale=scale, base_bits=base_bits)
     qmax = kom_qmax(base_bits)
     w = w.to(torch.float32)
-    red = tuple(range(stack_axes, w.ndim - 1))
-    if not red:
-        amax = w.abs()
-    else:
-        amax = w.abs().amax(dim=red, keepdim=stack_axes > 0)
+    red = tuple(range(w.ndim - 1))
+    amax = w.abs().amax(dim=red) if red else w.abs()
     amax = torch.clamp_min(amax, 1e-12)
     scale = amax / torch.full_like(amax, qmax)
     q = torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int16)

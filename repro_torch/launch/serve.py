@@ -14,6 +14,8 @@
         --policy kom_int14 --slots 4 --requests 8
     python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --policy kom_int14 --slots 4 --requests 8
+    python -m repro_torch.launch.serve --arch internvl2-26b \\
+        --param-dtype bfloat16 --policy kom_int14 --slots 4 --requests 8
     python -m repro_torch.launch.serve --arch alexnet,vgg16 \\
         --policy kom_int14 --requests 8 --slo standard \\
         --fault-plan transient=0.2,poison=0.05
@@ -50,11 +52,15 @@ pins ONE engine for every conv layer instead (it refuses ``--plan`` and
 ``--explore``, and a policy the engine cannot run exactly, as the
 reference launcher does).
 
-LMs (the dense, MoE and xLSTM families): ``--slots`` decode slots,
-``--max-len`` cache length, ``--max-new`` tokens per request; each
-request's prompt is ``rng.integers(3, 9)`` random tokens, as in the
-reference.  ``--policy`` applies to every model named; without it each
-model gets its own default: ``kom_int14`` for a CNN, the config's own
+LMs (the dense, MoE, xLSTM and VLM families; the VLM is served as its
+dense stack, without images, as in the reference): ``--slots`` decode
+slots, ``--max-len`` cache length, ``--max-new`` tokens per request,
+``--param-dtype`` the params' dtype; each request's prompt is
+``rng.integers(3, 9)`` random tokens, as in the reference.  An
+encoder-decoder (``whisper-large-v3``) is refused with the reference's
+message and exit code 2: the engine serves decoder-only families.
+``--policy`` applies to every model named; without it each model gets
+its own default: ``kom_int14`` for a CNN, the config's own
 (``native_bf16``) for an LM.  An MoE decode step routes every slot row
 as one group, so past its capacity (4 slots at olmoe-1b-7b's widths) a
 request can lose an expert to its batch-mates, as in the reference.
@@ -146,7 +152,8 @@ def _build_engine(cfg, args, device):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = transformer.init_params(cfg, gen, device=device)
     return ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                       device=device, **_resilience_kwargs(args))
+                       device=device, donate=True,
+                       **_resilience_kwargs(args))
 
 
 def _request(cfg, uid, rng, args, now):
@@ -210,6 +217,9 @@ def serve_cnn(cfg, args) -> int:
 
 
 def serve_lm(cfg, args) -> int:
+    if cfg.family == "encdec":
+        print("engine serves decoder-only families; pick another arch")
+        return 2
     device = resolve_device(args.device)
     engine = _build_engine(cfg, args, device)
     rng = np.random.default_rng(args.seed)
@@ -281,6 +291,8 @@ def _model_config(arch, args, ap):
         cfg = get_config(arch)
         if args.policy:
             cfg = cfg.replace(policy=MatmulPolicy(args.policy))
+        if args.param_dtype:
+            cfg = cfg.replace(param_dtype=args.param_dtype)
         return reduced(cfg) if args.reduced else cfg
     cfg = get_config(arch, policy=MatmulPolicy(args.policy or "kom_int14"),
                      conv_path=args.conv_path)
@@ -338,6 +350,11 @@ def main(argv=None) -> int:
                     help="LM: new tokens per request")
     ap.add_argument("--max-len", type=int, default=128,
                     help="LM: KV cache length per slot")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="LM: the params' dtype (default: the config's "
+                         "own, float32; a full-width internvl2-26b needs "
+                         "bfloat16 to fit one 80 GB card)")
     ap.add_argument("--slo", default=None,
                     choices=tuple(DEFAULT_SLO_BUDGETS),
                     help="SLO class of every request (its budget resolved "

@@ -1,8 +1,11 @@
-"""Model assembly for the transformer zoo: the dense, MoE and xLSTM
-(``ssm``) families (the port of ``repro.models.transformer``).
+"""Model assembly for the transformer zoo: the dense, MoE, xLSTM
+(``ssm``), VLM and encoder-decoder families (the port of
+``repro.models.transformer``).
 
 Params keep the reference's pytree layout: a dict whose ``"layers"``
-leaves (dense; MoE with ``"moe"`` in place of ``"mlp"``) or
+leaves (dense and VLM; MoE with ``"moe"`` in place of ``"mlp"``),
+``"enc_layers"``/``"dec_layers"`` leaves (encdec: the decoder's layers
+add ``"norm_x"`` and the cross-attention ``"xattn"``) or
 ``"groups"``/``"b{i}"`` leaves (ssm: one entry per member of the (m, m,
 m, s) group) are STACKED (leading layer or group axis), so a test
 can carry params across as they are.  Where the reference scans the stack
@@ -13,13 +16,19 @@ Public API (same names as the reference):
   init_params(cfg, generator)      -> params dict
   forward(params, cfg, batch)      -> (logits, aux)      [prefill]
   init_cache(cfg, batch, max_len)  -> decode cache dict
+  encode(params, cfg, audio_embeds, cache) -> cache with ``cross_kv``
   serve_step(params, cfg, cache, tokens, pos, write_mask) -> (logits, cache)
 
-The ``dense``, ``moe`` and ``ssm`` families run; VLM, encoder-decoder and
-hybrid raise ``not_ported`` (ROADMAP.md, Queue 1, "LM side: the other
-families"), and ``loss_fn`` waits for the training slice.  An MoE layer's
-aux loss is summed over layers in f32 and returned by :func:`forward`, as
-the reference's scan carries it.  Entry points run under
+The VLM's ``forward`` replaces the first ``n_img_tokens`` token
+embeddings with ``batch["img_embeds"]``; its decode runs the dense stack
+(the reference's serve steps pass no images).  The encoder-decoder's
+``forward`` encodes ``batch["audio_embeds"]`` (non-causal, no cache) and
+cross-attends to it from every decoder layer; its decode reads the
+cross K/V that :func:`encode` put in the cache.  The hybrid family raises
+``not_ported`` (ROADMAP.md, Queue 1, "LM side: the other families"), and
+``loss_fn`` waits for the training slice.  An MoE layer's aux loss is
+summed over layers in f32 and returned by :func:`forward`, as the
+reference's scan carries it.  Entry points run under
 ``torch.inference_mode()``.
 """
 from __future__ import annotations
@@ -41,12 +50,10 @@ from .ssm import (MLSTMState, SLSTMState, mlstm_block, mlstm_init,
 
 #: The ROADMAP.md item each family that is not ported yet waits for.
 _FAMILY_ITEM = {
-    "vlm": "Queue 1, LM side: the VLM family",
-    "encdec": "Queue 1, LM side: the encoder-decoder family",
     "hybrid": "Queue 1, LM side: the hybrid family (RG-LRU in "
               "models/ssm.py)",
 }
-_PORTED = ("dense", "moe", "ssm")
+_PORTED = ("dense", "moe", "ssm", "vlm", "encdec")
 
 
 def _require_ported(cfg: ModelConfig, what: str) -> None:
@@ -129,6 +136,28 @@ def _dense_layer_init(gen, cfg, dtype):
     return p
 
 
+def _enc_layer_init(gen, cfg, dtype):
+    dev = gen.device
+    return {
+        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
+        "attn": attn_init(gen, cfg, dtype, bias=cfg.attn_bias),
+        "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev),
+        "mlp": {
+            "w_up": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
+            "b_up": torch.zeros((cfg.d_ff,), dtype=dtype, device=dev),
+            "w_down": linear_init(gen, cfg.d_ff, cfg.d_model, dtype),
+            "b_down": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        },
+    }
+
+
+def _dec_layer_init(gen, cfg, dtype):
+    p = _enc_layer_init(gen, cfg, dtype)
+    p["norm_x"] = norm_init(cfg.d_model, cfg.norm, dtype, gen.device)
+    p["xattn"] = attn_init(gen, cfg, dtype, bias=cfg.attn_bias)
+    return p
+
+
 def _xlstm_block_init(gen, cfg, kind, dtype):
     return {
         "norm1": norm_init(cfg.d_model, cfg.norm, dtype, gen.device),
@@ -162,6 +191,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                                     dtype),
                 cfg.n_xlstm_groups, dev)
             for i, kind in enumerate(cfg.xlstm_group)}
+        return params
+    if cfg.family == "encdec":
+        params["enc_layers"] = _stacked_init(
+            lambda: _enc_layer_init(generator, cfg, dtype),
+            cfg.n_enc_layers, dev)
+        params["enc_final_norm"] = norm_init(cfg.d_model, cfg.norm, dtype,
+                                             dev)
+        params["dec_layers"] = _stacked_init(
+            lambda: _dec_layer_init(generator, cfg, dtype), cfg.n_layers,
+            dev)
         return params
     params["layers"] = _stacked_init(
         lambda: _dense_layer_init(generator, cfg, dtype), cfg.n_layers, dev)
@@ -256,16 +295,74 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any]):
     """Prefill forward: ``batch["tokens"]`` (b, s) -> (f32 logits (b, s, V),
     aux)."""
     _require_ported(cfg, "forward")
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens.long())
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x, _ = _xlstm_stack(params, cfg, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return _lm_logits(params, cfg, x), aux
+        return _lm_logits(params, cfg, x), zero
     positions = torch.arange(s, device=x.device)
+    if cfg.family == "encdec":
+        enc = _encoder(params, cfg, batch["audio_embeds"])
+        for i in range(cfg.n_layers):
+            lp = layer_params(params["dec_layers"], i)
+            x = _dec_layer(lp, cfg, x, positions,
+                           kv=_cross_kv(lp["xattn"], cfg, enc))[0]
+        return _lm_logits(params, cfg, x), zero
+    if cfg.family == "vlm":
+        # the image embeddings REPLACE the first n_img_tokens positions
+        img = torch.as_tensor(batch["img_embeds"], device=dev).to(cfg.dtype)
+        x = torch.cat([img, x[:, cfg.n_img_tokens:]], dim=1)
     x, aux, _ = _dense_stack_forward(params, cfg, x, positions)
     return _lm_logits(params, cfg, x), aux
+
+
+def _encoder(params, cfg, audio_embeds):
+    """The encoder stack over precomputed frame embeddings (b, enc_seq, d):
+    non-causal self-attention (the flash kernel when
+    ``cfg.use_flash_kernel``), no cache, then ``enc_final_norm``."""
+    dev = params["embed"].device
+    x = torch.as_tensor(audio_embeds, device=dev).to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=dev)
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params["enc_layers"], i)
+        a, _ = attention(lp["attn"], apply_norm(x, lp["norm1"], cfg.norm),
+                         cfg, positions=positions, causal=False,
+                         use_kernel=cfg.use_flash_kernel)
+        x = x + a
+        x = x + _mlp_apply(lp["mlp"], apply_norm(x, lp["norm2"], cfg.norm),
+                           cfg)
+    return apply_norm(x, params["enc_final_norm"], cfg.norm)
+
+
+def _cross_kv(xp, cfg, enc):
+    """A decoder layer's cross-attention K/V of the encoder output, (b,
+    hkv, enc_seq, dh) each, biases included."""
+    b = enc.shape[0]
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = dense(enc, xp["wk"], policy=cfg.policy, bias=xp.get("bk"))
+    v = dense(enc, xp["wv"], policy=cfg.policy, bias=xp.get("bv"))
+    return (k.reshape(b, -1, hkv, dh).transpose(1, 2),
+            v.reshape(b, -1, hkv, dh).transpose(1, 2))
+
+
+def _dec_layer(lp, cfg, x, positions, *, kv, cache=None, start=None):
+    """One decoder layer: causal self-attention (on ``cache`` when given,
+    else on the flash kernel when ``cfg.use_flash_kernel``),
+    cross-attention on ``kv`` (no rope, every key live), the GELU MLP.
+    Returns (x, the new self-attention cache or None)."""
+    a, new_kv = attention(lp["attn"], apply_norm(x, lp["norm1"], cfg.norm),
+                          cfg, positions=positions, cache=cache, start=start,
+                          use_kernel=cfg.use_flash_kernel)
+    x = x + a
+    a, _ = attention(lp["xattn"], apply_norm(x, lp["norm_x"], cfg.norm), cfg,
+                     positions=positions, causal=False, use_rope=False,
+                     kv_override=kv)
+    x = x + a
+    x = x + _mlp_apply(lp["mlp"], apply_norm(x, lp["norm2"], cfg.norm), cfg)
+    return x, new_kv
 
 
 def _xlstm_stack(params, cfg, x, states=None):
@@ -299,18 +396,45 @@ def _xlstm_stack(params, cfg, x, states=None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None):
-    """Dense: a zeroed KV cache {"kv": KVCache((L, b, hkv, max_len, dh) x
-    2)}.  ssm: {"groups": {"b{i}": MLSTMState | SLSTMState}}, leaves (G, b,
-    ...), zero but the sLSTM normalizer, which starts at ones (``max_len``
-    is not used: the state has no positions)."""
+    """Dense, MoE and VLM: a zeroed KV cache {"kv": KVCache((L, b, hkv,
+    max_len, dh) x 2)}; encdec adds {"cross_kv": KVCache((L, b, hkv,
+    enc_seq, dh) x 2)}, zero until :func:`encode`.  ssm: {"groups":
+    {"b{i}": MLSTMState | SLSTMState}}, leaves (G, b, ...), zero but the
+    sLSTM normalizer, which starts at ones (``max_len`` is not used: the
+    state has no positions)."""
     _require_ported(cfg, "init_cache")
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     if cfg.family == "ssm":
         return {"groups": _xlstm_cache(cfg, batch, dtype, dev)}
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"kv": KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                          torch.zeros(shape, dtype=dtype, device=dev))}
+
+    def kv(length):
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, length, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev))
+
+    if cfg.family == "encdec":
+        # cross_kv is filled by encode()
+        return {"kv": kv(max_len), "cross_kv": kv(cfg.enc_seq)}
+    return {"kv": kv(max_len)}
+
+
+@torch.inference_mode()
+def encode(params, cfg: ModelConfig, audio_embeds, cache):
+    """Run the encoder and fill the decoder's cross-attention cache: every
+    decoder layer's ``xattn`` K/V of the encoder output, in the compute
+    dtype, ``(L, b, hkv, enc_seq, dh)`` each (the input cache is not
+    modified)."""
+    _require_ported(cfg, "encode")
+    enc = _encoder(params, cfg, audio_embeds)
+    b, s = enc.shape[:2]
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
+    ks = torch.empty(shape, dtype=cfg.dtype, device=enc.device)
+    vs = torch.empty_like(ks)
+    for i in range(cfg.n_layers):
+        ks[i], vs[i] = _cross_kv(
+            layer_params(params["dec_layers"], i)["xattn"], cfg, enc)
+    return {**cache, "cross_kv": KVCache(ks, vs)}
 
 
 def _xlstm_cache(cfg, batch, dtype, dev):
@@ -352,6 +476,8 @@ def serve_step(params, cfg: ModelConfig, cache, tokens, pos,
         def keep(new, old):
             # every cache/state leaf carries batch on axis 1:
             # (n_layers|n_groups, b, ...) -- masked rows keep the old value
+            if new is old:  # a leaf the step passes through (cross_kv)
+                return old
             m = mask.reshape((1, -1) + (1,) * (new.ndim - 2))
             return torch.where(m, new, old)
 
@@ -371,6 +497,16 @@ def _serve_step_all_rows(params, cfg: ModelConfig, cache, tokens, pos):
     positions = pos + torch.arange(s, device=x.device)
     kv = cache["kv"]
     nk, nv = torch.empty_like(kv.k), torch.empty_like(kv.v)
+    if cfg.family == "encdec":
+        xkv = cache["cross_kv"]
+        for i in range(cfg.n_layers):
+            x, new_kv = _dec_layer(
+                layer_params(params["dec_layers"], i), cfg, x, positions,
+                kv=(xkv.k[i], xkv.v[i]), cache=KVCache(kv.k[i], kv.v[i]),
+                start=pos)
+            nk[i], nv[i] = new_kv.k, new_kv.v
+        return _lm_logits(params, cfg, x), {"kv": KVCache(nk, nv),
+                                            "cross_kv": xkv}
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         hn1 = apply_norm(x, lp["norm1"], cfg.norm)

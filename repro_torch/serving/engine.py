@@ -14,6 +14,9 @@ The port of ``repro.serving.engine``:
 * per-slot positions live on the host, the cache on the device;
 * integer policies quantize the matmul weights ONCE at build
   (:func:`~repro_torch.serving.weight_quant.quantize_params_inline`);
+  ``donate=True`` lets the engine quantize the caller's param tree in
+  place (its float leaves are then gone), so that a model whose float and
+  quantized weights do not fit on the card side by side still builds;
 * retries with backoff and bisection, and the OOM degrade ladder (halve
   the admission slot cap, then go down with requests failed typed);
 * fault injection: ``faults=`` (a :class:`~repro_torch.serving.faults.
@@ -64,16 +67,22 @@ class ServeEngine:
                  prequantize: bool | None = None,
                  slo_budgets: Optional[dict] = None, clock=None,
                  retry: Optional[RetryPolicy] = None,
-                 faults=None, advance=None, device=None):
+                 faults=None, advance=None, device=None,
+                 donate: bool = False):
         if cfg.family in ("encdec",):
             raise NotImplementedError("engine serves decoder-only families")
         self.cfg = cfg
         self.device = resolve_device(device)
-        params = transformer.params_to(params, self.device)
         spec = policy_int_spec(cfg.policy)
         if prequantize is None:
             prequantize = spec is not None
-        if prequantize and spec is not None:
+        quantize = prequantize and spec is not None
+        if quantize and donate:
+            # the caller's tree, in place, before anything else holds its
+            # leaves: each float weight is freed as its QWeight is made
+            quantize_params_inline(params, base_bits=spec[1], in_place=True)
+        params = transformer.params_to(params, self.device)
+        if quantize and not donate:
             params = quantize_params_inline(params, base_bits=spec[1])
         self.params = params
         self.slots = slots

@@ -20,7 +20,7 @@ QUANT_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
 
 
 def quantize_params_inline(params, *, base_bits: int = 7,
-                           leaves=QUANT_LEAVES):
+                           leaves=QUANT_LEAVES, in_place: bool = False):
     """One quantization pass: matmul leaves -> cached QWeight.
 
     The returned tree has the same structure as ``params``.  Matmul leaves
@@ -29,17 +29,33 @@ def quantize_params_inline(params, *, base_bits: int = 7,
     slices per layer.  In an xLSTM tree (``groups``/``b{i}``/``mixer``)
     that is ``w_up``, ``w_gate``, ``wq``, ``wk``, ``wv``, ``w_in`` and
     ``w_down``; ``w_if``, ``conv_w``, ``r``, ``b`` and the norms stay
-    float (``w_if`` and a tied head then run ``kom_q_dot``).  Scales are the eager true division, as the reference quantizes
-    outside ``jit`` at engine build.
+    float (``w_if`` and a tied head then run ``kom_q_dot``).  Scales are
+    the eager true division, as the reference quantizes outside ``jit``
+    at engine build.
+
+    ``in_place``: the returned tree IS ``params``, each matmul leaf
+    replaced as its QWeight is made, so that the float leaf is freed then
+    if nothing else holds it (a full-width internvl2-26b is 39.7 GB in
+    bf16 and its QWeights 38.6 GB: the two trees do not fit one 80 GB
+    card side by side).
     """
     def q(name, leaf):
         if isinstance(leaf, dict):
             return {k: q(k, v) for k, v in leaf.items()}
         if name in leaves and isinstance(leaf, torch.Tensor) \
                 and leaf.ndim >= 2:
-            return quantize_weight(leaf.to(torch.float32),
-                                   base_bits=base_bits,
+            return quantize_weight(leaf, base_bits=base_bits,
                                    stack_axes=leaf.ndim - 2)
         return leaf
 
-    return {k: q(k, v) for k, v in params.items()}
+    if not in_place:
+        return {k: q(k, v) for k, v in params.items()}
+
+    def replace(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                replace(v)
+            else:
+                tree[k] = q(k, v)
+    replace(params)
+    return params

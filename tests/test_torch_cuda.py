@@ -75,6 +75,24 @@ def test_limb_gemm_equals_plain(dev, variant, base_bits, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1280, 1280), (1280, 5120), (5120, 1280)])
+def test_limb_gemm_at_encoder_rows_with_bias_equals_plain(dev, k, n):
+    """whisper-large-v3's encoder products under kom_int14: m = 4 x 1500
+    rows (64-row tiles, ragged at the end) with row and column scales
+    and a bias, as ``kom_q_dot`` calls the kernel."""
+    g = torch.Generator().manual_seed(k + n)
+    qmax = sub.kom_qmax(7)
+    a = torch.randint(-qmax, qmax + 1, (6000, k), generator=g).to(dev)
+    b = torch.randint(-qmax, qmax + 1, (k, n), generator=g).to(dev)
+    rs = (torch.rand(6000, generator=g) * 1e-3).to(dev)
+    cs = (torch.rand(n, generator=g) * 1e-3).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    _same_as_plain(lambda: kom_matmul_int(a, b, variant="karatsuba",
+                                          base_bits=7, row_scale=rs,
+                                          col_scale=cs, bias=bias))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant,base_bits", SPECS)
 @pytest.mark.parametrize("h,cin,cout,k,s,pad,block,fold", [
     (13, 40, 70, 5, 1, "SAME", None, None),
@@ -831,6 +849,7 @@ def test_flash_attention_kernel_equals_plain(dev, b, hq, hkv, sq, skv, d,
     (1, 4, 4, 300, 1300, 1000, 512),     # window 512 with a q_offset
     (2, 4, 4, 1, 130, 129, None),        # sq = 1
     (1, 2, 1, 333, 333, 0, None),        # skv ragged (padded to 384)
+    (2, 48, 8, 384, 384, 0, None),       # internvl2's heads: GQA 6:1
 ])
 def test_flash_attention_dh128_kernels_equal_plain(dev, b, hq, hkv, sq, skv,
                                                    off, window):

@@ -134,8 +134,7 @@ def test_registry_matches_reference():
     assert get_config("granite-3-2b").padded_vocab == 49408
 
 
-@pytest.mark.parametrize("arch", ["internvl2-26b", "whisper-large-v3",
-                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_other_families_raise_not_ported(arch):
     cfg = reduced(get_config(arch))
     gen = torch.Generator().manual_seed(0)

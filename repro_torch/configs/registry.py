@@ -2,11 +2,9 @@
 
 The port of ``repro.configs.registry``: the eleven transformer-zoo configs
 (exact public configs, as data) and the paper's CNNs.  ``reduced(cfg)``
-shrinks any config to a CPU-test size of the same family.  Of the LM
-families ``dense``, ``moe`` and ``ssm`` run in the port so far; ``vlm``,
-``encdec`` and ``hybrid`` raise ``not_ported`` at
-``init_params``/``forward``/``init_cache``
-(:mod:`repro_torch.models.transformer`).
+shrinks any config to a CPU-test size of the same family.  Every LM
+family (``dense``, ``moe``, ``ssm``, ``hybrid``, ``vlm``, ``encdec``) runs
+in the port (:mod:`repro_torch.models.transformer`).
 """
 from __future__ import annotations
 

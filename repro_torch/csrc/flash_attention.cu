@@ -38,6 +38,10 @@
 // where the 128-row split q tile leaves no room for the ring, through
 // registers (each thread's share of the next tile loaded before this
 // tile's math; one block of 8 warps an SM, where the ring held it to 4).
+// At d = 256 a thread's accumulator alone is 128 registers and a 128-row
+// split q tile 264 KB: blocks of 64 q rows (4 warps) walk 16-key tiles,
+// each loaded and split right before its math (no copy in flight: 197 KB
+// of shared memory, one block an SM).
 // S stays in registers; its C fragment is P's A fragment (the permuted K
 // order of tf32x3.cuh), so P never leaves registers.  Blocks skip the KV
 // tiles outside the live key range of their rows (the causal half), warps
@@ -59,7 +63,11 @@
 //     into two bf16 limbs, hi = bf16(p) and lo = bf16(p - hi), and both are
 //     multiplied (P_hi V + P_lo V): v is bf16 and exact, so the products
 //     keep ~16 bits of p, for one extra product per tile.
-// Skipping and tile order are the f32 kernel's (tiles of 64 keys).
+// Skipping and tile order are the f32 kernel's (tiles of 64 keys).  At
+// d = 256 the (64 x 256) f32 accumulator takes 128 registers a thread, so
+// the KV tiles hold 32 keys (S and its two P limbs 32 more registers) and
+// three stages of them take 160 KB of shared memory beside the q tile;
+// P V is two m64n128k16 products a limb, one for each half of d.
 //
 // The bf16 kernel at d = 128 (ws::).  The same arithmetic on 128-key tiles:
 // S is m64n128k16 over 8 k-steps, P V m64n128k16 over 8 k-steps per limb.
@@ -127,9 +135,12 @@ __device__ __forceinline__ void kv_tiles(int q0, int bq, int sq, int skv,
 namespace tc {
 
 constexpr int BQ = 128;       // q rows per block: two warpgroups of 64
-constexpr int BKV = 64;       // keys per KV tile
 constexpr int THREADS = 256;
 constexpr int STAGES = 3;     // K/V ring depth: 2 tiles in flight
+
+// Keys per KV tile: 64, or 32 at dh 256 (see the note at the top).
+template <int DH>
+constexpr int BKV_OF = DH == 256 ? 32 : 64;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -234,6 +245,32 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) [+]= A (64 x 16, shared) * B (16 x 32, shared), both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S (64 x NK) [+]= Q (64 x 16) K^T (16 x NK), both from shared memory.
+template <int NK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[NK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (NK == 32) wgmma_ss_n32(d, da, db, scale_d);
+  if constexpr (NK == 64) wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // D (64 x 16, f32) += A (64 x 16, registers) * B (16 x 16, shared,
@@ -341,6 +378,14 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2],
   if constexpr (DH == 16) wgmma_rs_n16(d, a, db);
   if constexpr (DH == 32) wgmma_rs_n32(d, a, db);
   if constexpr (DH == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (DH == 256) {
+    // columns 0..127 are accumulator registers 0..63, columns 128..255
+    // registers 64..127; the second half of V starts 16 core matrices
+    // (2048 bytes) on along N
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a, db);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a,
+                  db + (2048 >> 4));
+  }
 }
 
 // One KV tile of NK keys (from key k0) for the thread's two q rows, after
@@ -444,7 +489,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob,
 
 template <int DH>
 constexpr size_t smem_bytes() {
-  return 2 * (size_t)(BQ * DH + 2 * STAGES * BKV * DH);
+  return 2 * (size_t)(BQ * DH + 2 * STAGES * BKV_OF<DH> * DH);
 }
 
 // Thread layout: warpgroup wg (rows 64*wg..), warp w of it (16 rows), lane
@@ -459,6 +504,7 @@ __global__ void __launch_bounds__(THREADS)
                               __nv_bfloat16* __restrict__ O, int hq, int hkv,
                               int sq, int skv, int causal, int has_window,
                               int window, int q_offset, float scale) {
+  constexpr int BKV = BKV_OF<DH>;
   constexpr int TILE = BKV * DH * 2;     // bytes of one K or V tile
   constexpr uint32_t ROWS8 = DH * 16;    // bytes of 8 tile rows
   extern __shared__ __align__(128) char smem[];
@@ -527,7 +573,7 @@ __global__ void __launch_bounds__(THREADS)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
-      wgmma_ss_n64(s, dq + 16 * kk, dk + 16 * kk, kk);  // +256 bytes a step
+      wgmma_qk<BKV>(s, dq + 16 * kk, dk + 16 * kk, kk);  // +256 bytes a step
     wgmma_commit();
     wgmma_wait_all();
     reg_fence(s);
@@ -589,6 +635,9 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
                         window, q_offset, scale, st);
+    case 256:
+      return launch<256>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                         window, q_offset, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -971,13 +1020,18 @@ namespace f32 {
 // dh 32 and 64 the ring stays: the register path there spilled more and
 // ran 0.7% slower at granite-3-2b's layer on an H100
 // (repro_torch/analysis/lm_kernel_times.py across two checkouts), and at
-// dh 16 a thread would hold no V row pair.
+// dh 16 a thread would hold no V row pair.  At dh 256 (64 q rows, 16-key
+// tiles) each tile is loaded into registers and split at once (PREFETCH
+// false): 64 registers of the next tile beside the 128 of the accumulator
+// would spill.
 template <int DH>
 struct Cfg {
-  static constexpr bool RING = DH != 128;           // raw K/V ring, else
+  static constexpr bool RING = DH < 128;            // raw K/V ring, else
                                                     // registers
-  static constexpr int BQ = 128;                    // q rows per block
-  static constexpr int BKV = DH == 128 ? 32 : 64;   // keys per KV tile
+  static constexpr bool PREFETCH = DH == 128;       // the next tile's, in
+                                                    // registers
+  static constexpr int BQ = DH == 256 ? 64 : 128;   // q rows per block
+  static constexpr int BKV = DH == 256 ? 16 : DH == 128 ? 32 : 64;  // keys
   static constexpr int WARPS = BQ / 16;             // 16 q rows per warp
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int STAGES = 2;                  // raw K/V ring
@@ -1005,7 +1059,8 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
                                int window, int q_offset, float scale) {
   using C = Cfg<DH>;
   constexpr int BQ = C::BQ, BKV = C::BKV, LDQ = C::LDQ, LDV = C::LDV;
-  constexpr int PV_N = DH / 8 < 8 ? DH / 8 : 8;  // P V chains in flight
+  // P V chains in flight (4 at dh 256, beside its 128-register acc)
+  constexpr int PV_N = DH == 256 ? 4 : DH / 8 < 8 ? DH / 8 : 8;
   extern __shared__ __align__(16) uint4 smem_q[];
   uint4* sQ = smem_q;            // [BQ][LDQ] pair quads along d
   uint4* sK = sQ + BQ * LDQ;     // [BKV][LDQ] pair quads along d
@@ -1084,10 +1139,11 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
       dst[3] = tf32x3::pair_quad(rv[i][0].w, rv[i][1].w);
     }
   };
-  if constexpr (C::RING)
+  if constexpr (C::PREFETCH) {
+    if (kt_begin < kt_end) fetch(kt_begin);
+  } else if constexpr (C::RING) {
     load_kv(kt_begin);
-  else if (kt_begin < kt_end)
-    fetch(kt_begin);
+  }
   for (int idx = tid; idx < BQ * DH / 2; idx += C::THREADS) {
     const int r = idx / (DH / 2), p = idx % (DH / 2);
     float2 x = make_float2(0.0f, 0.0f);
@@ -1137,9 +1193,10 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, 1)
       __syncthreads();
     } else {
       __syncthreads();  // everyone is done with tile kt - 1
-      stash();          // tile kt, fetched during tile kt - 1
+      if constexpr (!C::PREFETCH) fetch(kt);
+      stash();          // tile kt (with PREFETCH: fetched during kt - 1)
       __syncthreads();
-      if (kt + 1 < kt_end) fetch(kt + 1);  // in flight during this tile
+      if (C::PREFETCH && kt + 1 < kt_end) fetch(kt + 1);  // in flight
     }
 
     // A tile outside the live keys of all 16 rows of the warp, every one of
@@ -1293,6 +1350,9 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<128>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
                          window, q_offset, scale, st);
+    case 256:
+      return launch<256>(q, k, v, o, b, hq, hkv, sq, skv, causal, has_window,
+                         window, q_offset, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1374,6 +1434,8 @@ extern "C" int flash_attention_smem_bytes(int dh, int bf16) {
       return (int)(bf16 ? tc::smem_bytes<64>() : f32::Cfg<64>::smem);
     case 128:
       return (int)f32::Cfg<128>::smem;
+    case 256:
+      return (int)(bf16 ? tc::smem_bytes<256>() : f32::Cfg<256>::smem);
     default:
       return 0;
   }

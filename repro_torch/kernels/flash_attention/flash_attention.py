@@ -10,7 +10,8 @@ one thread block owns (batch, q-head, block of q rows) and walks the KV
 blocks itself (``repro_torch/csrc/flash_attention.cu``): f32 inputs as
 three TF32 passes on ``mma.sync`` (``csrc/tf32x3.cuh``), bf16 inputs on
 ``wgmma`` (at head dim 128 a warp-specialized kernel: TMA loads, 128-key
-tiles, two consumer warpgroups taking turns on the tensor cores).
+tiles, two consumer warpgroups taking turns on the tensor cores; at head
+dim 256 32-key tiles, and for f32 64 q rows a block and 16-key tiles).
 
 Masked scores are ``-1e30``, not ``-inf``, as in the reference.  A KV block
 that is wholly masked for a row BEFORE its first live key gives that row
@@ -35,7 +36,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 NAME = "flash_attention"
 #: Head dims the kernel is instantiated for.
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _ARGTYPES = {"flash_attention_launch": [ctypes.c_void_p] * 4
              + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p],
@@ -46,6 +47,12 @@ _ARGTYPES = {"flash_attention_launch": [ctypes.c_void_p] * 4
              + [ctypes.c_void_p],
              # a launch's dynamic shared memory (chip_smoke.py reports it)
              "flash_attention_smem_bytes": [ctypes.c_int] * 2}
+
+
+def bf16_key_tile(dh: int) -> int:
+    """Keys per KV tile of the bf16 kernel at head dim ``dh`` (the mutant
+    controls skip one such tile)."""
+    return {128: 128, 256: 32}.get(dh, 64)
 
 
 def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,

@@ -16,6 +16,8 @@
         --policy kom_int14 --slots 4 --requests 8
     python -m repro_torch.launch.serve --arch internvl2-26b \\
         --param-dtype bfloat16 --policy kom_int14 --slots 4 --requests 8
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+        --policy kom_int14 --slots 4 --requests 8
     python -m repro_torch.launch.serve --arch alexnet,vgg16 \\
         --policy kom_int14 --requests 8 --slo standard \\
         --fault-plan transient=0.2,poison=0.05
@@ -52,8 +54,10 @@ pins ONE engine for every conv layer instead (it refuses ``--plan`` and
 ``--explore``, and a policy the engine cannot run exactly, as the
 reference launcher does).
 
-LMs (the dense, MoE, xLSTM and VLM families; the VLM is served as its
-dense stack, without images, as in the reference): ``--slots`` decode
+LMs (the dense, MoE, xLSTM, hybrid and VLM families; the VLM is served
+as its dense stack, without images, as in the reference; the hybrid's
+local attention decodes through a ring of ``min(local_window, max_len)``
+slots): ``--slots`` decode
 slots, ``--max-len`` cache length, ``--max-new`` tokens per request,
 ``--param-dtype`` the params' dtype; each request's prompt is
 ``rng.integers(3, 9)`` random tokens, as in the reference.  An

@@ -1,6 +1,5 @@
-"""Recurrent sequence mixers of the xLSTM family: mLSTM and sLSTM (the port
-of the first two thirds of ``repro.models.ssm``; RG-LRU waits for the hybrid
-family).
+"""Recurrent sequence mixers: mLSTM and sLSTM (xLSTM) and RG-LRU (Griffin,
+the hybrid family's recurrent block) -- the port of ``repro.models.ssm``.
 
 The projections route through the precision policy (``layers.dense``); the
 recurrences are elementwise and run in f32.  mLSTM uses the chunkwise
@@ -14,6 +13,12 @@ The chunk loop runs in Python here, as ``lax.scan`` runs it in the
 reference; the CUDA kernel of the same function is the op
 :func:`repro_torch.kernels.mlstm_chunk.mlstm_chunk`, which no model calls
 (as in the reference).
+
+RG-LRU's prefill recurrence ``h_t = a_t h_{t-1} + b_t`` runs as the
+reference's ``lax.associative_scan``: the same odd/even recursion (combine
+adjacent pairs, recurse on the half, combine the even elements, interleave),
+O(log s) tensor ops a layer and no loop over time steps.  Decode folds the
+carried ``h`` in step by step, as the reference's ``lax.scan`` does.
 """
 from __future__ import annotations
 
@@ -208,3 +213,106 @@ def slstm_block(params, x, cfg, state: Optional[SLSTMState] = None):
         ys.append(hnew)
     y = torch.stack(ys, dim=1).to(x.dtype)  # (b, s, d)
     return dense(y, params["w_down"], policy=policy), st
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor     # (b, d_rnn) f32
+    conv: torch.Tensor  # (b, kconv-1, d_rnn) causal-conv tail
+
+
+def rglru_init(gen: torch.Generator, cfg, dtype=torch.float32):
+    """The reference's leaves and distributions, drawn from ``gen`` on its
+    own device: ``lam`` uniform in [2.5, 5.5) (f32), so that ``a =
+    sigmoid(lam)`` lies in (0.9, 0.999)."""
+    d, dr = cfg.d_model, cfg.rnn_width
+    return {
+        "w_x": linear_init(gen, d, dr, dtype),
+        "w_y": linear_init(gen, d, dr, dtype),
+        "conv_w": (_randn(gen, (4, dr), dtype) * 0.1).to(dtype),
+        "w_a": linear_init(gen, dr, dr, dtype),
+        "w_i": linear_init(gen, dr, dr, dtype),
+        "lam": torch.rand((dr,), generator=gen, dtype=torch.float32,
+                          device=gen.device) * 3.0 + 2.5,
+        "w_out": linear_init(gen, dr, d, dtype),
+    }
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """``even[i]`` at 2i and ``odd[i]`` at 2i + 1 along axis 1."""
+    shape = list(even.shape)
+    shape[1] += odd.shape[1]
+    out = even.new_empty(shape)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan over axis 1 of ``(a_l, b_l) . (a_r, b_r) = (a_l a_r,
+    a_r b_l + b_r)`` in ``jax.lax.associative_scan``'s order."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    # combine adjacent pairs, then scan the half
+    ra = a[:, 0:-1:2] * a[:, 1::2]
+    rb = a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2]
+    oa, ob = _associative_scan(ra, rb)
+    # the even elements: the odd prefix before each, then the element
+    pa, pb = (oa[:, :-1], ob[:, :-1]) if n % 2 == 0 else (oa, ob)
+    ar, br = a[:, 2::2], b[:, 2::2]
+    ea = torch.cat([a[:, :1], pa * ar], dim=1)
+    eb = torch.cat([b[:, :1], ar * pb + br], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _rglru_coeffs(xg: torch.Tensor, log_a: torch.Tensor):
+    """``(a, b)`` of ``h_t = a_t h_{t-1} + b_t``: ``a = exp(log_a)``, ``b =
+    sqrt(clip(1 - a^2, 1e-12, 1)) * xg``."""
+    a = torch.exp(log_a)
+    return a, torch.sqrt(torch.clamp(1.0 - a * a, 1e-12, 1.0)) * xg
+
+
+def _rglru_scan(xg: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0, by associative scan over
+    the sequence axis 1."""
+    return _associative_scan(*_rglru_coeffs(xg, log_a))[1]
+
+
+def rglru_block(params, x, cfg, state: Optional[RGLRUState] = None):
+    """Griffin recurrent block: x (b, s, d) -> (y, new_state).  A GeLU
+    branch and a conv branch; the conv branch's sigmoid gates ``r``, ``i``
+    drive the RG-LRU core in f32.  ``state`` None: prefill from h = 0 (the
+    associative scan); else decode, folding ``state.h`` in step by step."""
+    policy = cfg.policy
+    f32 = torch.float32
+    xb = dense(x, params["w_x"], policy=policy)  # (b, s, dr)
+    yb = dense(x, params["w_y"], policy=policy)
+    # jax.nn.gelu defaults to the tanh approximation
+    yb = F.gelu(yb.to(f32), approximate="tanh").to(x.dtype)
+    cstate = state.conv if state is not None else None
+    xc, new_conv = causal_conv1d(xb, params["conv_w"], cstate)
+    r = torch.sigmoid(dense(xc, params["w_a"], policy=policy).to(f32))
+    i = torch.sigmoid(dense(xc, params["w_i"], policy=policy).to(f32))
+    lam = params["lam"]
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus turns linear past its
+    # threshold
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))
+    log_a = (-8.0 * softplus) * r  # (b, s, dr)
+    gated = i * xc.to(f32)
+    if state is None:
+        h = _rglru_scan(gated, log_a)
+        h_last = h[:, -1]
+    else:
+        a, bterm = _rglru_coeffs(gated, log_a)
+        h_last, hs = state.h, []
+        for t in range(x.shape[1]):
+            h_last = a[:, t] * h_last + bterm[:, t]
+            hs.append(h_last)
+        h = torch.stack(hs, dim=1)
+    out = h.to(x.dtype) * yb
+    y = dense(out, params["w_out"], policy=policy)
+    return y, RGLRUState(h_last, new_conv)

@@ -1,5 +1,5 @@
 """Model assembly for the transformer zoo: the dense, MoE, xLSTM
-(``ssm``), VLM and encoder-decoder families (the port of
+(``ssm``), hybrid, VLM and encoder-decoder families (the port of
 ``repro.models.transformer``).
 
 Params keep the reference's pytree layout: a dict whose ``"layers"``
@@ -7,10 +7,11 @@ leaves (dense and VLM; MoE with ``"moe"`` in place of ``"mlp"``),
 ``"enc_layers"``/``"dec_layers"`` leaves (encdec: the decoder's layers
 add ``"norm_x"`` and the cross-attention ``"xattn"``) or
 ``"groups"``/``"b{i}"`` leaves (ssm: one entry per member of the (m, m,
-m, s) group) are STACKED (leading layer or group axis), so a test
-can carry params across as they are.  Where the reference scans the stack
-with ``lax.scan``, the port loops in Python (:func:`layer_params` slices
-one layer or group).
+m, s) group; hybrid: per member of the (rglru, rglru, attn) group, plus a
+``"tail"`` of RG-LRU blocks) are STACKED (leading layer or group axis), so
+a test can carry params across as they are.  Where the reference scans the
+stack with ``lax.scan``, the port loops in Python (:func:`layer_params`
+slices one layer or group).
 
 Public API (same names as the reference):
   init_params(cfg, generator)      -> params dict
@@ -24,8 +25,12 @@ embeddings with ``batch["img_embeds"]``; its decode runs the dense stack
 (the reference's serve steps pass no images).  The encoder-decoder's
 ``forward`` encodes ``batch["audio_embeds"]`` (non-causal, no cache) and
 cross-attends to it from every decoder layer; its decode reads the
-cross K/V that :func:`encode` put in the cache.  The hybrid family raises
-``not_ported`` (ROADMAP.md, Queue 1, "LM side: the other families"), and
+cross K/V that :func:`encode` put in the cache.  The hybrid family's
+blocks are an RG-LRU or a local (sliding-window) attention mixer, then a
+GeGLU MLP; its prefill attends through ``window=local_window`` (the flash
+kernel when ``cfg.use_flash_kernel``), its decode through a ring buffer
+of ``min(local_window, max_len)`` slots (:func:`_ring_local_attention`).
+An unknown family raises ``ValueError``, as in the reference;
 ``loss_fn`` waits for the training slice.  An MoE layer's aux loss is
 summed over layers in f32 and returned by :func:`forward`, as the
 reference's scan carries it.  Entry points run under
@@ -36,33 +41,26 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.substrate import QWeight, not_ported
+from repro_torch.core.substrate import QWeight
 from repro_torch.device import resolve_device
 
-from .attention import KVCache, attention, attn_init
+from .attention import NEG_INF, KVCache, attention, attn_init
 from .config import ModelConfig
 from . import moe
 from .layers import (apply_norm, dense, embed_init, gelu_mlp, linear_init,
                      norm_init, rms_norm, rope, swiglu)
-from .ssm import (MLSTMState, SLSTMState, mlstm_block, mlstm_init,
-                  slstm_block, slstm_init, slstm_state0)
+from .ssm import (MLSTMState, RGLRUState, SLSTMState, mlstm_block,
+                  mlstm_init, rglru_block, rglru_init, slstm_block,
+                  slstm_init, slstm_state0)
 
-#: The ROADMAP.md item each family that is not ported yet waits for.
-_FAMILY_ITEM = {
-    "hybrid": "Queue 1, LM side: the hybrid family (RG-LRU in "
-              "models/ssm.py)",
-}
-_PORTED = ("dense", "moe", "ssm", "vlm", "encdec")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family in _PORTED:
-        return
-    if cfg.family in _FAMILY_ITEM:
-        raise not_ported(f"{what} for family {cfg.family!r}",
-                         _FAMILY_ITEM[cfg.family])
-    raise ValueError(cfg.family)
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 def map_tree(fn, *trees):
@@ -111,6 +109,14 @@ def _stacked_init(fn, n: int, device):
     return out
 
 
+def _glu_mlp_init(gen, cfg, dtype):
+    return {
+        "w_gate": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        "w_up": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
+        "w_down": linear_init(gen, cfg.d_ff, cfg.d_model, dtype),
+    }
+
+
 def _dense_layer_init(gen, cfg, dtype):
     dev = gen.device
     p = {
@@ -121,11 +127,7 @@ def _dense_layer_init(gen, cfg, dtype):
     if cfg.family == "moe":
         p["moe"] = moe.moe_init(gen, cfg, dtype)
     elif cfg.mlp == "swiglu":
-        p["mlp"] = {
-            "w_gate": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
-            "w_up": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
-            "w_down": linear_init(gen, cfg.d_ff, cfg.d_model, dtype),
-        }
+        p["mlp"] = _glu_mlp_init(gen, cfg, dtype)
     else:  # gelu
         p["mlp"] = {
             "w_up": linear_init(gen, cfg.d_model, cfg.d_ff, dtype),
@@ -158,6 +160,17 @@ def _dec_layer_init(gen, cfg, dtype):
     return p
 
 
+def _hybrid_block_init(gen, cfg, kind, dtype):
+    dev = gen.device
+    return {
+        "norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
+        "mixer": (rglru_init(gen, cfg, dtype) if kind == "rglru"
+                  else attn_init(gen, cfg, dtype)),
+        "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev),
+        "mlp": _glu_mlp_init(gen, cfg, dtype),
+    }
+
+
 def _xlstm_block_init(gen, cfg, kind, dtype):
     return {
         "norm1": norm_init(cfg.d_model, cfg.norm, dtype, gen.device),
@@ -173,7 +186,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     ``generator`` on its own device and placed on ``device`` (default: the
     GPU, see resolve_device).  A CUDA generator draws full-width weights
     on the card directly."""
-    _require_ported(cfg, "init_params")
+    _check_family(cfg)
     dev = resolve_device(device)
     dtype = cfg.pdtype
     params: Dict[str, Any] = {
@@ -191,6 +204,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                                                     dtype),
                 cfg.n_xlstm_groups, dev)
             for i, kind in enumerate(cfg.xlstm_group)}
+        return params
+    if cfg.family == "hybrid":
+        params["groups"] = {
+            f"b{i}": _stacked_init(
+                lambda kind=kind: _hybrid_block_init(generator, cfg, kind,
+                                                     dtype),
+                cfg.n_pattern_groups, dev)
+            for i, kind in enumerate(cfg.pattern_group)}
+        if cfg.n_tail_layers:
+            params["tail"] = _stacked_init(
+                lambda: _hybrid_block_init(generator, cfg, "rglru", dtype),
+                cfg.n_tail_layers, dev)
         return params
     if cfg.family == "encdec":
         params["enc_layers"] = _stacked_init(
@@ -228,8 +253,10 @@ def _lm_logits(params, cfg, x):
         w = w.to(cfg.dtype)
     logits = dense(x, w, policy=cfg.policy).to(torch.float32)
     if cfg.logits_softcap:
+        # in place: the logits are the forward's largest tensor (4 x 2048
+        # x 256000 f32 is 8.4 GB), and ``logits`` is a fresh product
         c = cfg.logits_softcap
-        logits = torch.tanh(logits / c) * c
+        logits.div_(c).tanh_().mul_(c)
     return logits
 
 
@@ -239,6 +266,14 @@ def _mlp_apply(p, x, cfg):
                       policy=cfg.policy)
     return gelu_mlp(x, p["w_up"], p["b_up"], p["w_down"], p["b_down"],
                     policy=cfg.policy)
+
+
+def _geglu(p, x, cfg):
+    g = dense(x, p["w_gate"], policy=cfg.policy)
+    u = dense(x, p["w_up"], policy=cfg.policy)
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(g.to(torch.float32), approximate="tanh").to(x.dtype) * u
+    return dense(h, p["w_down"], policy=cfg.policy)
 
 
 def _ffn_apply(lp, hn, cfg):
@@ -294,7 +329,7 @@ def _dense_stack_forward(params, cfg, x, positions, *, collect_kv=False):
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any]):
     """Prefill forward: ``batch["tokens"]`` (b, s) -> (f32 logits (b, s, V),
     aux)."""
-    _require_ported(cfg, "forward")
+    _check_family(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     s = tokens.shape[1]
@@ -304,6 +339,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any]):
         x, _ = _xlstm_stack(params, cfg, x)
         return _lm_logits(params, cfg, x), zero
     positions = torch.arange(s, device=x.device)
+    if cfg.family == "hybrid":
+        x, _ = _hybrid_stack(params, cfg, x, positions)
+        return _lm_logits(params, cfg, x), zero
     if cfg.family == "encdec":
         enc = _encoder(params, cfg, batch["audio_embeds"])
         for i in range(cfg.n_layers):
@@ -390,6 +428,60 @@ def _xlstm_stack(params, cfg, x, states=None):
                for name, sts in new.items()}
 
 
+def _hybrid_block(bp, cfg, kind, x, positions, state=None, pos=None):
+    """One hybrid block: the mixer on the normed input (RG-LRU, or local
+    attention: windowed over ``positions`` in prefill, the ring buffer
+    ``state`` at ``pos`` in decode), then the GeGLU MLP.  Returns (x, the
+    mixer's new state or None)."""
+    hn = apply_norm(x, bp["norm1"], cfg.norm)
+    if kind == "rglru":
+        m, st = rglru_block(bp["mixer"], hn, cfg, state=state)
+    elif state is None:
+        m, st = attention(bp["mixer"], hn, cfg, positions=positions,
+                          window=cfg.local_window,
+                          use_kernel=cfg.use_flash_kernel)
+    else:
+        m, st = _ring_local_attention(
+            bp["mixer"], hn, cfg, state, pos,
+            min(cfg.local_window, state.k.shape[2]))
+    x = x + m
+    x = x + _geglu(bp["mlp"], apply_norm(x, bp["norm2"], cfg.norm), cfg)
+    return x, st
+
+
+def _hybrid_stack(params, cfg, x, positions, cache=None, pos=None):
+    """The hybrid groups, then the RG-LRU tail, a Python loop over both.
+
+    ``cache`` None: prefill (returns no states).  Else the decode cache
+    (``groups`` leaves (G, b, ...), ``tail`` leaves (T, b, ...)); returns
+    the new ``{"groups": ..., "tail": ...}`` in the same layout.
+    """
+    def at(st, i):
+        return type(st)(*(t[i] for t in st))
+
+    def stacked(sts):
+        return type(sts[0])(*(torch.stack(f) for f in zip(*sts)))
+
+    new = {f"b{i}": [] for i in range(len(cfg.pattern_group))}
+    for g in range(cfg.n_pattern_groups):
+        for i, kind in enumerate(cfg.pattern_group):
+            name = f"b{i}"
+            st = None if cache is None else at(cache["groups"][name], g)
+            x, st = _hybrid_block(layer_params(params["groups"][name], g),
+                                  cfg, kind, x, positions, st, pos)
+            new[name].append(st)
+    tail = []
+    for t in range(cfg.n_tail_layers):
+        st = None if cache is None else at(cache["tail"], t)
+        x, st = _hybrid_block(layer_params(params["tail"], t), cfg,
+                              "rglru", x, positions, st, pos)
+        tail.append(st)
+    if cache is None:
+        return x, None
+    return x, {"groups": {name: stacked(sts) for name, sts in new.items()},
+               "tail": stacked(tail) if tail else cache["tail"]}
+
+
 # ---------------------------------------------------------------------------
 # decode: cache init + serve_step
 # ---------------------------------------------------------------------------
@@ -401,12 +493,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     enc_seq, dh) x 2)}, zero until :func:`encode`.  ssm: {"groups":
     {"b{i}": MLSTMState | SLSTMState}}, leaves (G, b, ...), zero but the
     sLSTM normalizer, which starts at ones (``max_len`` is not used: the
-    state has no positions)."""
-    _require_ported(cfg, "init_cache")
+    state has no positions).  hybrid: {"groups": {"b{i}": RGLRUState
+    (h (G, b, d_rnn) f32, conv (G, b, 3, d_rnn)) | KVCache (the ring,
+    (G, b, hkv, min(local_window, max_len), dh) x 2)}, "tail":
+    RGLRUState}, all zero."""
+    _check_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     if cfg.family == "ssm":
         return {"groups": _xlstm_cache(cfg, batch, dtype, dev)}
+    if cfg.family == "hybrid":
+        return _hybrid_cache(cfg, batch, max_len, dtype, dev)
 
     def kv(length):
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, length, cfg.head_dim)
@@ -425,7 +522,7 @@ def encode(params, cfg: ModelConfig, audio_embeds, cache):
     decoder layer's ``xattn`` K/V of the encoder output, in the compute
     dtype, ``(L, b, hkv, enc_seq, dh)`` each (the input cache is not
     modified)."""
-    _require_ported(cfg, "encode")
+    _check_family(cfg)
     enc = _encoder(params, cfg, audio_embeds)
     b, s = enc.shape[:2]
     shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim)
@@ -435,6 +532,65 @@ def encode(params, cfg: ModelConfig, audio_embeds, cache):
         ks[i], vs[i] = _cross_kv(
             layer_params(params["dec_layers"], i)["xattn"], cfg, enc)
     return {**cache, "cross_kv": KVCache(ks, vs)}
+
+
+def _hybrid_cache(cfg, batch, max_len, dtype, dev):
+    di, f32 = cfg.rnn_width, torch.float32
+
+    def rglru(n):
+        return RGLRUState(
+            torch.zeros((n, batch, di), dtype=f32, device=dev),
+            torch.zeros((n, batch, 3, di), dtype=dtype, device=dev))
+
+    shape = (cfg.n_pattern_groups, batch, cfg.n_kv_heads,
+             min(cfg.local_window, max_len), cfg.head_dim)
+    groups = {
+        f"b{i}": rglru(cfg.n_pattern_groups) if kind == "rglru" else
+        KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+        for i, kind in enumerate(cfg.pattern_group)}
+    return {"groups": groups, "tail": rglru(cfg.n_tail_layers)}
+
+
+def _ring_local_attention(lp, x, cfg, cache: KVCache, pos: int,
+                          window: int):
+    """Decode-step local attention over a ring buffer of ``window`` slots:
+    x (b, 1, d), ``cache`` one layer's ring (b, hkv, window, dh) x 2.  The
+    new K/V land in slot ``pos mod window`` (the row's other slots keep
+    their bits); a slot is live iff the absolute position it holds, ``pos
+    - ((pos - slot) mod window)``, lies in [0, pos]; masked scores are
+    -1e30; the scores, softmax and P V run in f32 (GQA by group).
+    Returns (y, the new ring)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"ring-buffer decode takes one token a step, got "
+                         f"{s}")
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    policy = cfg.policy
+    q = dense(x, lp["wq"], policy=policy).reshape(b, s, hq, dh)
+    k = dense(x, lp["wk"], policy=policy).reshape(b, s, hkv, dh)
+    v = dense(x, lp["wv"], policy=policy).reshape(b, s, hkv, dh)
+    positions = pos + torch.arange(s, device=x.device)
+    q = rope(q, positions, theta=cfg.rope_theta).transpose(1, 2)
+    k = rope(k, positions, theta=cfg.rope_theta).transpose(1, 2)
+    v = v.transpose(1, 2)
+    slot = pos % window
+    ck, cv = cache.k.clone(), cache.v.clone()
+    ck[:, :, slot:slot + 1] = k.to(ck.dtype)
+    cv[:, :, slot:slot + 1] = v.to(cv.dtype)
+    idx = torch.arange(window, device=x.device)
+    k_pos = pos - torch.remainder(pos - idx, window)
+    valid = (k_pos >= 0) & (k_pos <= pos)
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, hq // hkv, s, dh)
+    sc = torch.einsum("bkgqd,bksd->bkgqs", qg.to(f32), ck.to(f32)) \
+        / torch.full((), dh ** 0.5, dtype=f32, device=x.device)
+    sc = torch.where(valid, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, cv.to(f32))
+    o = o.reshape(b, hq, s, dh).transpose(1, 2).reshape(b, s, hq * dh)
+    y = dense(o.to(x.dtype), lp["wo"], policy=policy)
+    return y, KVCache(ck, cv)
 
 
 def _xlstm_cache(cfg, batch, dtype, dev):
@@ -486,7 +642,7 @@ def serve_step(params, cfg: ModelConfig, cache, tokens, pos,
 
 
 def _serve_step_all_rows(params, cfg: ModelConfig, cache, tokens, pos):
-    _require_ported(cfg, "serve_step")
+    _check_family(cfg)
     pos = int(pos)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     s = tokens.shape[1]
@@ -495,6 +651,9 @@ def _serve_step_all_rows(params, cfg: ModelConfig, cache, tokens, pos):
         x, groups = _xlstm_stack(params, cfg, x, cache["groups"])
         return _lm_logits(params, cfg, x), {"groups": groups}
     positions = pos + torch.arange(s, device=x.device)
+    if cfg.family == "hybrid":
+        x, new = _hybrid_stack(params, cfg, x, positions, cache, pos)
+        return _lm_logits(params, cfg, x), new
     kv = cache["kv"]
     nk, nv = torch.empty_like(kv.k), torch.empty_like(kv.v)
     if cfg.family == "encdec":

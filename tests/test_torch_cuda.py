@@ -768,9 +768,11 @@ FD_MOD = "repro_torch.kernels.flash_decode.flash_decode"
 def _bf16_rows_vs_plain(q, k, v, *, causal=True, window=None, q_offset=0):
     """bf16 flash attention within ATTN_ROW_TOL_BF16 of its plain version
     row by row; where the last row's live keys span three of the kernel's
-    key tiles (128 keys at dh 128, else 64), the plain version skipping the
-    middle one must miss that limit."""
+    key tiles (``bf16_key_tile``: 128 keys at dh 128, 32 at dh 256, else
+    64), the plain version skipping the middle one must miss that limit."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        bf16_key_tile)
     run = lambda: fa(q, k, v, causal=causal, window=window,
                      q_offset=q_offset)
     got = run()
@@ -778,7 +780,7 @@ def _bf16_rows_vs_plain(q, k, v, *, causal=True, window=None, q_offset=0):
         want = run()
     err = _row_err(got, want)
     assert err <= ATTN_ROW_TOL_BF16, err
-    sq, skv, tile = q.shape[2], k.shape[2], 128 if q.shape[3] == 128 else 64
+    sq, skv, tile = q.shape[2], k.shape[2], bf16_key_tile(q.shape[3])
     last = min(sq - 1 + q_offset, skv - 1) if causal else skv - 1
     lo = max(0, last - window + 1) if window is not None else 0
     if last // tile - lo // tile >= 2:
@@ -869,6 +871,36 @@ def test_flash_attention_dh128_kernels_equal_plain(dev, b, hq, hkv, sq, skv,
                          "flash_attention", tol,
                          _mutated(FA_MOD, "live_mask", _strict_causal))
     _bf16_rows_vs_plain(qq, kk, vv, window=window, q_offset=off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,off,window,causal", [
+    (1, 16, 1, 512, 512, 0, 256, True),     # recurrentgemma's MQA, window
+    (1, 16, 1, 300, 1300, 1000, 512, True),  # q_offset + window, ragged
+    (2, 2, 1, 1, 130, 129, None, True),      # sq = 1
+    (1, 4, 2, 200, 384, 0, None, False),     # non-causal, GQA 2:1
+    (1, 2, 1, 100, 384, 300, 4, True),       # rows with no live key
+])
+def test_flash_attention_dh256_kernels_equal_plain(dev, b, hq, hkv, sq, skv,
+                                                   off, window, causal):
+    """Head dim 256 (recurrentgemma-9b): the bf16 kernel's 32-key tiles and
+    the f32 kernel's 64-row blocks of 16-key tiles, each within its
+    tolerance of the plain version (the strict-causal mutant must miss
+    where the kernel is causal); bf16 also row by row, where a skipped
+    middle key tile must miss."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _attn_inputs((b, hq, sq, 256), (b, hkv, skv, 256),
+                           torch.float32, dev, b + hq + sq + skv + 256)
+    for dtype, tol in ((torch.float32, ATTN_TOL_F32),
+                       (torch.bfloat16, ATTN_TOL_BF16)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        _kernel_vs_plain(lambda: fa(qq, kk, vv, causal=causal,
+                                    window=window, q_offset=off),
+                         "flash_attention", tol,
+                         _mutated(FA_MOD, "live_mask", _strict_causal)
+                         if causal else None)
+    _bf16_rows_vs_plain(qq, kk, vv, causal=causal, window=window,
+                        q_offset=off)
 
 
 @pytest.mark.cuda

@@ -134,15 +134,46 @@ def test_registry_matches_reference():
     assert get_config("granite-3-2b").padded_vocab == 49408
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_other_families_raise_not_ported(arch):
-    cfg = reduced(get_config(arch))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.forward({}, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_lm_arch_runs_reduced(arch):
+    """Every LM arch of the registry builds, runs ``forward`` and
+    ``init_cache`` reduced on the CPU (each family's embeddings beside the
+    tokens): finite logits of the padded vocab, and the reference's
+    ``init_cache`` leaf for leaf (shapes, dtypes, values)."""
+    cfg = reduced(get_config(arch)).replace(compute_dtype="float32")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (2, 6), generator=g)}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.randn((2, cfg.n_img_tokens,
+                                           cfg.d_model), generator=g)
+    if cfg.family == "encdec":
+        batch["audio_embeds"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                            generator=g)
+    logits, _ = T.forward(params, cfg, batch)
+    assert logits.shape == (2, 6, cfg.padded_vocab)
+    assert torch.isfinite(logits).all()
+    want = jax.tree.leaves(ref_T.init_cache(
+        ref_reduced(ref_get_config(arch)).replace(compute_dtype="float32"),
+        2, 8))
+    got = jax.tree.leaves(T.init_cache(cfg, 2, 8, device="cpu"))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert str(g.dtype) == f"torch.{w.dtype}"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_unknown_family_raises_value_error():
+    """As in the reference, a family the zoo does not know is a
+    ``ValueError`` at every entry point."""
+    cfg = reduced(get_config("granite-3-2b")).replace(family="rwkv")
+    with pytest.raises(ValueError, match="rwkv"):
+        T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="rwkv"):
+        T.forward({"embed": torch.zeros((256, 64))}, cfg,
+                  {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+    with pytest.raises(ValueError, match="rwkv"):
         T.init_cache(cfg, 1, 8, device="cpu")
 
 

@@ -112,14 +112,15 @@ def test_split_is_exact_to_two_to_the_minus_22():
 
 def tf32x3_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                      passes=3):
-    """The f32 kernel's arithmetic: KV tiles of 64 keys (32 at dh 128); S
-    from 8-deep steps over dh folded in f32; the online softmax in f32;
-    acc = acc * alpha, then each 8-key step of P V added to it.  Skipped
-    tiles change nothing (flash_attention.cu), so every tile is walked."""
+    """The f32 kernel's arithmetic: KV tiles of 64 keys (32 at dh 128, 16
+    at dh 256); S from 8-deep steps over dh folded in f32; the online
+    softmax in f32; acc = acc * alpha, then each 8-key step of P V added to
+    it.  Skipped tiles change nothing (flash_attention.cu), so every tile
+    is walked."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
-    bk = 32 if d == 128 else 64
+    bk = {128: 32, 256: 16}.get(d, 64)
     pad = (-skv) % bk
     kp, vp = (F.pad(t.float(), (0, 0, 0, pad)) for t in (k, v))
     q32 = q.float().reshape(b, hkv, g, sq, d)
@@ -155,6 +156,7 @@ def _maxdiff(a, b) -> float:
     (1, 4, 2, 96, 96, 64, 0, None),      # GQA, a ragged last tile
     (1, 2, 1, 48, 192, 32, 144, 80),     # q_offset + window
     (1, 2, 2, 40, 40, 128, 0, None),     # dh 128: 32-key tiles
+    (1, 2, 1, 40, 72, 256, 32, 24),      # dh 256: 16-key tiles, window
 ])
 def test_three_pass_attention_matches_plain_and_reference(b, hq, hkv, sq, skv,
                                                           d, off, window):
